@@ -1,0 +1,22 @@
+"""Where the port's entry points run.
+
+Every entry point takes ``device``.  Given, it is used as is; not given,
+the entry point runs on the card, and raises when there is none.  The
+port never moves to the CPU on its own: a CPU run is asked for, as the
+tests do with ``device="cpu"``.
+"""
+
+from __future__ import annotations
+
+import torch
+
+
+def resolve_device(device=None) -> torch.device:
+    """``device`` as a ``torch.device``; the card when ``device`` is None."""
+    if device is not None:
+        return torch.device(device)
+    if not torch.cuda.is_available():
+        raise RuntimeError(
+            "graph_tpu_torch runs on a CUDA device and none is available; "
+            "pass device='cpu' to run on the CPU")
+    return torch.device("cuda")

@@ -1,0 +1,219 @@
+"""EdgePlan — the edge list compiled once into what K1 and K2 read.
+
+Counterpart of ``graph_tpu.engine.plan``, with a layout chosen for
+Hopper rather than carried over.  The JAX plan pads slots into windows,
+lanemap tables, pair/quad slots and Benes-routed sections because Mosaic
+has no vector gather or scatter; a GPU gathers and reads rows directly,
+so the port's plan is a destination-sorted CSR of sources:
+
+* slots sorted by (internal destination, internal source);
+* ``indptr`` (n+1,) int64: the slots of destination d are
+  ``indptr[d]:indptr[d+1]``;
+* ``slot_src`` (m,) int32: each slot's internal source.
+
+``relabel="degree"`` numbers nodes by descending out-degree, ties by id,
+exactly as the JAX plan does (``perm`` maps original id -> internal id),
+so hot sources sit together in the gathered vector.
+
+The build runs on the plan's device: the relabel, the (dst, src) sort and
+the row offsets are torch operations there.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+import hashlib
+import logging
+import os
+from typing import Optional
+
+import numpy as np
+import torch
+
+from graph_tpu_torch.device import resolve_device
+
+logger = logging.getLogger(__name__)
+
+FORMAT_VERSION = 1
+
+
+@dataclasses.dataclass(frozen=True)
+class EdgePlan:
+    """Destination-sorted slots of a graph, resident on one device."""
+
+    n: int
+    m: int
+    indptr: torch.Tensor    # (n+1,) int64 row offsets, internal dst order
+    slot_src: torch.Tensor  # (m,) int32 internal source of each slot
+    #: (n,) int32 original id -> internal id, or None without relabel
+    perm: Optional[torch.Tensor] = None
+
+    @property
+    def device(self) -> torch.device:
+        return self.indptr.device
+
+    def save(self, path: str) -> None:
+        """Snapshot the plan as npz with a format-version header."""
+        np.savez(
+            path,
+            __header__=np.array([self.n, self.m, FORMAT_VERSION], np.int64),
+            indptr=self.indptr.cpu().numpy(),
+            slot_src=self.slot_src.cpu().numpy(),
+            perm=(np.zeros(0, np.int32) if self.perm is None
+                  else self.perm.cpu().numpy()),
+        )
+
+    @staticmethod
+    def load(path: str, device=None) -> "EdgePlan":
+        """Read a snapshot written by :meth:`save` onto ``device``."""
+        device = resolve_device(device)
+        with np.load(path) as z:
+            h = z["__header__"]
+            if h.size != 3 or int(h[2]) != FORMAT_VERSION:
+                raise ValueError(
+                    f"{path}: plan format {int(h[-1])} != {FORMAT_VERSION}; "
+                    "rebuild the plan")
+            n, m = int(h[0]), int(h[1])
+            indptr = torch.from_numpy(z["indptr"]).to(device)
+            slot_src = torch.from_numpy(z["slot_src"]).to(device)
+            perm = z["perm"]
+        if indptr.shape != (n + 1,) or slot_src.shape != (m,) or (
+                perm.size and perm.shape != (n,)):
+            raise ValueError(f"{path}: array shapes disagree with the header")
+        return EdgePlan(n=n, m=m, indptr=indptr, slot_src=slot_src,
+                        perm=torch.from_numpy(perm).to(device)
+                        if perm.size else None)
+
+
+def _as_ids(a, device: torch.device) -> torch.Tensor:
+    """Edge endpoints as an int64 tensor on ``device``."""
+    if isinstance(a, torch.Tensor):
+        return a.to(device=device, dtype=torch.int64)
+    return torch.from_numpy(np.ascontiguousarray(a, dtype=np.int64)).to(device)
+
+
+def _compile(src: torch.Tensor, dst: torch.Tensor, n: int,
+             perm: Optional[torch.Tensor]) -> EdgePlan:
+    m = src.numel()
+    if dst.numel() != m:
+        raise ValueError(f"src has {m} edges, dst {dst.numel()}")
+    if m and (int(torch.minimum(src.min(), dst.min())) < 0
+              or int(torch.maximum(src.max(), dst.max())) >= n):
+        raise ValueError(f"edge endpoints must lie in [0, {n})")
+    if perm is not None:
+        p = perm.long()
+        src, dst = p[src], p[dst]
+    # one int64 key orders slots by (dst, src); n < 2**31 keeps it exact
+    key = torch.sort(dst * n + src).values
+    slot_src = (key % max(n, 1)).to(torch.int32)
+    indptr = torch.zeros(n + 1, dtype=torch.int64, device=src.device)
+    torch.cumsum(torch.bincount(dst, minlength=n), 0, out=indptr[1:])
+    return EdgePlan(n=n, m=m, indptr=indptr, slot_src=slot_src, perm=perm)
+
+
+def degree_perm(src: torch.Tensor, n: int) -> torch.Tensor:
+    """original id -> internal id by descending out-degree, ties by id.
+
+    The same permutation as the JAX plan's ``np.argsort(-deg,
+    kind="stable")`` relabel."""
+    deg = torch.bincount(src, minlength=n)
+    order = torch.sort(-deg, stable=True).indices
+    perm = torch.empty(n, dtype=torch.int32, device=src.device)
+    perm[order] = torch.arange(n, dtype=torch.int32, device=src.device)
+    return perm
+
+
+def build_plan(src, dst, n: int, relabel: Optional[str] = None,
+               device=None) -> EdgePlan:
+    """Compile an edge list (numpy arrays or tensors) into an EdgePlan.
+
+    The plan gathers x[src] and sums into y[dst].  ``relabel="degree"``
+    builds it on the internal descending-out-degree node order.
+    """
+    if relabel not in (None, "degree"):
+        raise ValueError(f"relabel must be None or 'degree', got {relabel!r}")
+    device = resolve_device(device)
+    n = int(n)
+    if n >= 2**31:
+        raise OverflowError(f"n = {n} does not fit the plan's int32 sources")
+    src_t, dst_t = _as_ids(src, device), _as_ids(dst, device)
+    perm = degree_perm(src_t, n) if relabel == "degree" else None
+    return _compile(src_t, dst_t, n, perm)
+
+
+def plan_from_numpy(src: np.ndarray, dst: np.ndarray, n: int,
+                    perm: Optional[np.ndarray] = None,
+                    device=None) -> EdgePlan:
+    """Compile numpy edge arrays with a given node order.
+
+    ``perm`` (original id -> internal id), when given, is used as the
+    plan's internal order; it may come from a ``graph_tpu`` EdgePlan, so
+    that both packages run on the same internal order.
+    """
+    device = resolve_device(device)
+    n = int(n)
+    if n >= 2**31:
+        raise OverflowError(f"n = {n} does not fit the plan's int32 sources")
+    perm_t = None
+    if perm is not None:
+        perm = np.asarray(perm)
+        if perm.shape != (n,) or not np.array_equal(
+                np.sort(perm), np.arange(n)):
+            raise ValueError("perm must be a permutation of range(n)")
+        perm_t = torch.from_numpy(perm.astype(np.int32)).to(device)
+    return _compile(_as_ids(src, device), _as_ids(dst, device), n, perm_t)
+
+
+def _host_ids(a) -> np.ndarray:
+    if isinstance(a, torch.Tensor):
+        a = a.cpu().numpy()
+    return np.ascontiguousarray(a, dtype=np.int64)
+
+
+def plan_cache_path(cache_dir: str, src, dst, n: int,
+                    relabel: Optional[str] = None) -> str:
+    """Content-addressed cache filename for a plan.
+
+    Keyed on the exact edge arrays (as int64), the node count, the
+    relabel and the plan format version: a graph rebuilt from the same
+    inputs reuses its plan across processes.
+    """
+    src, dst = _host_ids(src), _host_ids(dst)
+    h = hashlib.blake2b(digest_size=16)
+    h.update(np.asarray([n, src.size, FORMAT_VERSION], np.int64).tobytes())
+    h.update((relabel or "").encode() + b"\0")
+    h.update(src.tobytes())
+    h.update(dst.tobytes())
+    return os.path.join(cache_dir, f"torchplan-{h.hexdigest()}.npz")
+
+
+def load_or_build_plan(src, dst, n: int, cache_dir: Optional[str] = None,
+                       relabel: Optional[str] = None,
+                       device=None) -> EdgePlan:
+    """:func:`build_plan` with cross-process persistence.
+
+    ``cache_dir`` (or $GRAPH_TPU_TORCH_PLAN_CACHE) holds content-addressed
+    plan snapshots; a hit skips the build.  Without either, it builds.
+    """
+    if cache_dir is None:
+        cache_dir = os.environ.get("GRAPH_TPU_TORCH_PLAN_CACHE")
+    if not cache_dir:
+        return build_plan(src, dst, n, relabel=relabel, device=device)
+    os.makedirs(cache_dir, exist_ok=True)
+    path = plan_cache_path(cache_dir, src, dst, n, relabel=relabel)
+    if os.path.exists(path):
+        try:
+            plan = EdgePlan.load(path, device=device)
+            logger.info("EdgePlan cache hit: %s", path)
+            return plan
+        except (OSError, ValueError, KeyError) as exc:
+            logger.warning("EdgePlan cache %s unreadable (%s)", path, exc)
+    plan = build_plan(src, dst, n, relabel=relabel, device=device)
+    try:
+        tmp = f"{path}.{os.getpid()}.tmp.npz"
+        plan.save(tmp)
+        os.replace(tmp, path)
+        logger.info("EdgePlan cached: %s", path)
+    except OSError as exc:  # read-only cache dir etc.
+        logger.warning("EdgePlan cache write failed (%s)", exc)
+    return plan
