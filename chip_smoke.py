@@ -1,20 +1,33 @@
 #!/usr/bin/env python3
-"""On-card check of graph_tpu_torch: plan-engine PageRank at RMAT scale 22.
+"""On-card check of graph_tpu_torch: PageRank, WCC and SSSP at RMAT scale 22.
 
 Run from the repository root on a machine with one CUDA card:
 
     python3 chip_smoke.py
 
-It builds the CUDA kernels from ``graph_tpu_torch/csrc``, holds each
-against its plain PyTorch version bit for bit (edge cases, then the
-scale-22 shapes), drives the port's main path through its public entry
-points (``build_directed`` and ``page_rank``) on a Graph500 RMAT graph
-of scale 22 (n = 4,194,304, m = 67,108,864, seed 42), checks spmv
-against a host model of the int32 quanta on every row, and times the
-PageRank run and each kernel.  It prints one JSON line per phase; the
-line before the last lists the kernels, and the last line is
-``{"ok": true, "device": {...}}``.  Any failed check exits non-zero
-without that line, as does a machine without a CUDA device.
+It builds the CUDA kernels from ``graph_tpu_torch/csrc`` (one nvcc per
+source, all started together), holds each kernel against its plain
+PyTorch version bit for bit (edge cases, then the main paths' shapes),
+checks the three algorithms on small graphs against the port's own CPU
+path, and drives the port's three engine paths through their public
+entry points on one Graph500 RMAT graph of scale 22 (n = 4,194,304,
+m = 67,108,864, seed 42):
+
+* ``page_rank`` (20 iterations), with spmv held to a host model of the
+  int32 quanta on every row;
+* ``wcc`` over the symmetrized edges, every label held to scipy's weak
+  components (the least node id of each);
+* ``delta_stepping`` with bench.py's weights (``default_rng(3).random(m)
+  * 4``) from the node of largest out-degree (node 0, bench.py's start,
+  has no out-edge in this graph), every edge held to the f32
+  shortest-path certificate and the unreached set to scipy's BFS.
+
+Each path runs with the launch counts set to 0 just before and read just
+after, and fails unless each of its kernels launched at least once per
+iteration.  It prints one JSON line per phase; the line before the last
+lists the kernels, and the last line is ``{"ok": true, "device": {...}}``.
+Any failed check exits non-zero without that line, as does a machine
+without a CUDA device.
 """
 
 import json
@@ -30,13 +43,24 @@ ROOT = os.path.dirname(os.path.abspath(__file__))
 SCALE = 22
 ITERS = 20
 #: H100 SXM data sheet: HBM3 rate, and the float32 rate outside the
-#: tensor cores (the table's entry for scalar arithmetic; K2's int32
-#: additions are counted against it).
+#: tensor cores (the table's entry for scalar arithmetic; the kernels'
+#: int32 additions and compares are counted against it).
 HBM_BYTES_PER_S = 3.35e12
 SCALAR_OPS_PER_S = 67e12
 #: bench.py's traffic model of one pull iteration: 4 B source id + 4 B
 #: gathered score + amortized index and score writes, per edge.
 BYTES_PER_EDGE = 12.0
+#: The kernels each path must launch at least once per iteration.
+PATH_KERNELS = {"pagerank": ("k1_gather", "k2_reduce"),
+                "wcc": ("k1_gather", "k2_reduce_min"),
+                "sssp": ("k1_gather_weighted", "k2_reduce_min")}
+WIKI = np.array([(1, 2), (2, 1), (4, 0), (4, 1), (5, 4), (5, 1), (5, 6),
+                 (6, 1), (6, 5), (7, 1), (7, 5), (8, 1), (8, 5), (9, 1),
+                 (9, 5), (10, 1), (10, 5), (11, 5), (12, 5)])
+#: The reference's SSSP golden (tests/test_sssp.py): a..f = 0..5.
+GOLDEN_EDGES = np.array([(0, 1, 4.0), (0, 2, 2.0), (1, 2, 5.0), (1, 3, 10.0),
+                         (2, 4, 3.0), (3, 5, 11.0), (4, 3, 4.0)])
+GOLDEN = [0.0, 4.0, 2.0, 9.0, 5.0, 20.0]
 
 
 class SmokeFailure(Exception):
@@ -83,13 +107,38 @@ def time_ms(fn, reps=20):
     return start.elapsed_time(end) / reps
 
 
-def max_abs_diff(a, b):
+def best_of_3(fn):
+    """Host seconds of each of 3 synchronized calls, and the last result."""
+    runs = []
+    for _ in range(3):
+        _sync()
+        t0 = time.perf_counter()
+        res = fn()
+        _sync()
+        runs.append(time.perf_counter() - t0)
+    return runs, res
+
+
+def bits_diff(a, b):
+    """max |a - b| over the 4-byte patterns (0 iff bit-identical)."""
+    import torch
+
+    a, b = a.view(torch.int32), b.view(torch.int32)
     return int((a.long() - b.long()).abs().max()) if a.numel() else 0
 
 
+def hold(errs, name, got, want):
+    """Kernel output against its plain version: recorded, then checked."""
+    _sync()
+    e = bits_diff(got, want)
+    errs[name] = max(errs.get(name, 0), e)
+    check(e == 0, f"{name} disagrees with its plain version (max {e})")
+
+
 def edge_cases(dev, seed):
-    """Inputs for K1/K2 with empty rows, a hub row longer than a block,
-    sums that wrap int32, and m not a multiple of the block size."""
+    """Inputs with empty rows, a 300,001-slot hub row, sums that wrap
+    int32, negative int32 (for imin), and m not a multiple of the block
+    size; f32 inputs for the weighted gather and the f32 min."""
     import torch
 
     g = np.random.default_rng(seed)
@@ -98,25 +147,50 @@ def edge_cases(dev, seed):
     counts[17] = 300_001
     indptr = np.concatenate([[0], np.cumsum(counts)])
     m = int(indptr[-1])
-    arrays = (g.integers(-2**31, 2**31, 1 << 12).astype(np.int32),  # xq
-              g.integers(0, 1 << 12, m).astype(np.int32),           # slot_src
-              g.integers(-2**31, 2**31, m).astype(np.int32),        # contrib
-              indptr)
-    return [torch.from_numpy(a).to(dev) for a in arrays]
+    # nonnegative f32 bit patterns: zeros, denormals, 3e38 and above
+    fbits = g.integers(0, 2**31, m).astype(np.int32)
+    fbits[::97] = 0
+    fbits[1::97] = np.arange(fbits[1::97].size) % 0x7FFFFF + 1
+    fbits[2::97] = np.float32(3e38).view(np.int32)
+    fbits[3::97] = np.finfo(np.float32).max.view(np.int32)
+    # f32 gather inputs: zeros, denormals, 3e38; quantized: |x op w| < 2
+    # with exact half-quantum ties (x = odd / 2**31, w = 1 or 0)
+    xf = (g.random(1 << 12) * 1e3).astype(np.float32)
+    xf[:8], xf[16:24] = 0.0, np.float32(3e38)
+    xf[8:16] = np.arange(1, 9, dtype=np.int32).view(np.float32)
+    xs = (g.random(1 << 12) * 2.6 - 1.3).astype(np.float32)
+    xs[:64] = (2 * np.arange(64) + 1) / np.float32(2**31)
+    ws = (g.random(m) * 2.6 - 1.3).astype(np.float32)
+    ws[: m // 4] = 1.0
+    arrays = {
+        "xq": g.integers(-2**31, 2**31, 1 << 12).astype(np.int32),
+        "slot_src": g.integers(0, 1 << 12, m).astype(np.int32),
+        "contrib": g.integers(-2**31, 2**31, m).astype(np.int32),
+        "fbits": fbits, "indptr": indptr, "xf": xf,
+        "wf": (g.random(m) * 4).astype(np.float32), "xs": xs, "ws": ws,
+        "ws_add": np.where(ws == 1.0, np.float32(0.0), ws * 0.5),
+    }
+    return {k: torch.from_numpy(a).to(dev) for k, a in arrays.items()}
 
 
-def compare_kernels(kernels, xq, slot_src, contrib, indptr, errs):
-    """Kernel vs plain version on the same inputs; records max |diff|."""
-    got1, want1 = kernels.k1_gather(xq, slot_src), kernels.k1_gather_plain(
-        xq, slot_src)
-    got2, want2 = kernels.k2_reduce(contrib, indptr), kernels.k2_reduce_plain(
-        contrib, indptr)
-    _sync()
-    e1, e2 = max_abs_diff(got1, want1), max_abs_diff(got2, want2)
-    errs["k1_gather"] = max(errs["k1_gather"], e1)
-    errs["k2_reduce"] = max(errs["k2_reduce"], e2)
-    check(e1 == 0, f"k1_gather disagrees with its plain version (max {e1})")
-    check(e2 == 0, f"k2_reduce disagrees with its plain version (max {e2})")
+def check_edge_cases(kernels, a, errs):
+    """Every kernel against its plain version on the edge-case inputs."""
+    k = kernels
+    hold(errs, "k1_gather", k.k1_gather(a["xq"], a["slot_src"]),
+         k.k1_gather_plain(a["xq"], a["slot_src"]))
+    hold(errs, "k2_reduce", k.k2_reduce(a["contrib"], a["indptr"]),
+         k.k2_reduce_plain(a["contrib"], a["indptr"]))
+    for op, c in (("imin", a["contrib"]), ("min", a["fbits"])):
+        hold(errs, "k2_reduce_min", k.k2_reduce_min(c, a["indptr"], op),
+             k.k2_reduce_min_plain(c, a["indptr"], op))
+    cases = [(a["xf"], a["wf"], "add", False), (a["xf"], a["wf"], "mul", False),
+             (a["xs"], a["ws"], "mul", True),
+             (a["xs"], a["ws_add"], "add", True)]
+    for x, w, combine, quantize in cases:
+        hold(errs, "k1_gather_weighted",
+             k.k1_gather_weighted(x, a["slot_src"], w, combine, quantize),
+             k.k1_gather_weighted_plain(x, a["slot_src"], w, combine,
+                                        quantize))
 
 
 def host_jacobi(src, dst, n, iters, damping):
@@ -130,19 +204,29 @@ def host_jacobi(src, dst, n, iters, damping):
     return scores
 
 
+def host_components(src, dst, n):
+    """Each node's weak component as its least node id (scipy)."""
+    import scipy.sparse as sp
+    from scipy.sparse.csgraph import connected_components
+
+    a = sp.csr_matrix((np.ones(src.size, np.float32), (src, dst)),
+                      shape=(n, n))
+    _, lab = connected_components(a, directed=True, connection="weak")
+    _, first = np.unique(lab, return_index=True)  # first = least id
+    return first[lab]
+
+
 def small_graph_checks(gtt, dev):
-    """The port on the card against the host on small inputs: a float64
-    Jacobi reference (within 1e-6) and the port's CPU path (same
-    iteration count, scores within 1e-6)."""
+    """The port on the card against the host on small inputs: PageRank
+    against a float64 Jacobi reference (within 1e-6) and the port's CPU
+    path (same iteration count, scores within 1e-6); WCC labels and
+    rounds and SSSP distances exactly equal to the CPU path."""
     from graph_tpu_torch.generate import host_rmat
 
-    wiki = np.array([(1, 2), (2, 1), (4, 0), (4, 1), (5, 4), (5, 1), (5, 6),
-                     (6, 1), (6, 5), (7, 1), (7, 5), (8, 1), (8, 5), (9, 1),
-                     (9, 5), (10, 1), (10, 5), (11, 5), (12, 5)])
+    r12 = host_rmat(12, seed=3)
     out = {}
-    for name, (src, dst, n) in {
-            "wiki": (wiki[:, 0], wiki[:, 1], 13),
-            "rmat12": (*host_rmat(12, seed=3), 1 << 12)}.items():
+    for name, (src, dst, n) in {"wiki": (WIKI[:, 0], WIKI[:, 1], 13),
+                                "rmat12": (*r12, 1 << 12)}.items():
         cfg = gtt.PageRankConfig(engine="plan", max_iterations=50,
                                  tolerance=1e-7)
         card = gtt.page_rank(gtt.build_directed(src, dst, node_count=n,
@@ -159,8 +243,46 @@ def small_graph_checks(gtt, dev):
               f"by {err_ref}")
         check(err_cpu <= 1e-6, f"{name}: card and CPU scores differ by "
               f"{err_cpu}")
-        out[name] = {"iterations": card.ran_iterations,
-                     "max_abs_vs_f64": err_ref, "max_abs_vs_cpu": err_cpu}
+        card_w = gtt.wcc(gtt.build_directed(src, dst, node_count=n,
+                                            device=dev))
+        host_w = gtt.wcc(gtt.build_directed(src, dst, node_count=n,
+                                            device="cpu"))
+        labels = card_w.components_np()
+        check(np.array_equal(labels, host_w.components_np())
+              and card_w.ran_iterations == host_w.ran_iterations,
+              f"{name}: WCC on the card differs from the CPU path")
+        check(np.array_equal(labels, host_components(src, dst, n)),
+              f"{name}: WCC labels differ from scipy's components")
+        out[name] = {"pagerank_iterations": card.ran_iterations,
+                     "pagerank_max_abs_vs_f64": err_ref,
+                     "pagerank_max_abs_vs_cpu": err_cpu,
+                     "wcc_rounds": card_w.ran_iterations,
+                     "wcc_components": int(np.unique(labels).size)}
+
+    e = GOLDEN_EDGES
+    golden = {d: gtt.build_directed(
+        e[:, 0].astype(np.int64), e[:, 1].astype(np.int64),
+        e[:, 2].astype(np.float32), node_count=6,
+        layout=gtt.CsrLayout.DEDUPLICATED, device=d) for d in (dev, "cpu")}
+    d_golden = gtt.delta_stepping(golden[dev], gtt.DeltaSteppingConfig(0, 3.0))
+    check(d_golden.distances_np().tolist() == GOLDEN,
+          f"SSSP golden: {d_golden.distances_np().tolist()} != {GOLDEN}")
+    src, dst = r12
+    w = np.random.default_rng(3).random(src.size).astype(np.float32) * 4
+    start = int(np.bincount(src).argmax())
+    cfg = gtt.DeltaSteppingConfig(start, 3.0)
+    card_s = gtt.delta_stepping(gtt.build_directed(
+        src, dst, w, node_count=1 << 12, device=dev), cfg)
+    host_s = gtt.delta_stepping(gtt.build_directed(
+        src, dst, w, node_count=1 << 12, device="cpu"), cfg)
+    check(np.array_equal(card_s.distances_np(), host_s.distances_np())
+          and card_s.ran_iterations == host_s.ran_iterations,
+          "rmat12: SSSP distances on the card differ from the CPU path")
+    reached = int((card_s.distances_np() < np.finfo(np.float32).max).sum())
+    check(reached > 1, "rmat12: SSSP reached only its start node")
+    out["sssp"] = {"golden": d_golden.distances_np().tolist(),
+                   "rmat12_rounds": card_s.ran_iterations,
+                   "rmat12_reached": reached}
     return out
 
 
@@ -179,6 +301,140 @@ def gate(eng, src, dst, n, dev):
     bad = int((y != torch.from_numpy(y_exp).to(dev)).sum())
     check(bad == 0, f"exactness gate: spmv differs on {bad}/{n} rows")
     return x_t, bad
+
+
+def drive(kernels, path, fn, iterations_of):
+    """Run one path with the launch counts set to 0 just before and read
+    just after; each of its kernels must launch once per iteration."""
+    kernels.reset_launches()
+    res = fn()
+    _sync()
+    launches = dict(kernels.LAUNCHES)
+    iters = iterations_of(res)
+    for name in PATH_KERNELS[path]:
+        check(launches[name] >= iters >= 1,
+              f"{path}: {name} launched {launches[name]} times in "
+              f"{iters} iterations")
+    return res, launches
+
+
+def wcc_phase(gtt, kernels, graph, src, dst, n):
+    """WCC on the scale-22 graph; every label against scipy."""
+    import torch
+    from graph_tpu_torch.algos.wcc import _sym_engine
+
+    t0 = time.perf_counter()
+    sym = _sym_engine(graph)  # the engine wcc builds and caches
+    _sync()
+    build_s = time.perf_counter() - t0
+    res, launches = drive(kernels, "wcc", lambda: gtt.wcc(graph),
+                          lambda r: r.ran_iterations)
+    runs, res = best_of_3(lambda: gtt.wcc(graph))
+    labels = res.components
+    check(tuple(labels.shape) == (n,) and labels.dtype == torch.int32,
+          f"labels have shape {tuple(labels.shape)} {labels.dtype}")
+    t0 = time.perf_counter()
+    want = host_components(src, dst, n)
+    bad = int((labels.cpu().numpy() != want).sum())
+    check(bad == 0, f"WCC: {bad}/{n} labels differ from scipy's")
+    best = min(runs)
+    emit({"phase": "wcc", "scale": SCALE, "n": n, "m_sym": sym.plan.m,
+          "sym_plan_build_s": build_s, "rounds": res.ran_iterations,
+          "run_s": runs, "best_s": best,
+          "per_round_ms": best / res.ran_iterations * 1e3,
+          "launches": launches, "labels_differing_from_host": bad,
+          "components": int(np.unique(want).size),
+          "host_check_s": time.perf_counter() - t0,
+          "max_in_degree": int(torch.diff(sym.plan.indptr).max())})
+    return sym, launches
+
+
+def sssp_phase(gtt, kernels, src, dst, n, dev):
+    """SSSP with bench.py's weights from the node of largest out-degree;
+    the f32 certificate on every edge and the unreached set against
+    scipy's BFS."""
+    import scipy.sparse as sp
+    import torch
+    from scipy.sparse.csgraph import breadth_first_order
+
+    from graph_tpu_torch.algos.sssp import INF, _weighted_engine
+
+    w = np.random.default_rng(3).random(src.size).astype(np.float32) * 4
+    t0 = time.perf_counter()
+    graph = gtt.build_directed(src, dst, w, node_count=n, device=dev)
+    _sync()
+    graph_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    eng = _weighted_engine(graph)  # the engine delta_stepping builds
+    _sync()
+    build_s = time.perf_counter() - t0
+    out_degree = np.bincount(src, minlength=n)
+    start = int(out_degree.argmax())
+    cfg = gtt.DeltaSteppingConfig(start, 3.0)
+    res, launches = drive(kernels, "sssp",
+                          lambda: gtt.delta_stepping(graph, cfg),
+                          lambda r: r.ran_iterations)
+    runs, res = best_of_3(lambda: gtt.delta_stepping(graph, cfg))
+    dist_t = res.distances
+    check(tuple(dist_t.shape) == (n,) and dist_t.dtype == torch.float32,
+          f"distances have shape {tuple(dist_t.shape)} {dist_t.dtype}")
+    t0 = time.perf_counter()
+    dist = dist_t.cpu().numpy()
+    reached = dist < INF
+    check(dist[start] == 0.0, f"dist[start] = {dist[start]}")
+    check(not np.isnan(dist).any() and (dist >= 0).all(),
+          "distances not all nonnegative numbers")
+    via = dist[src] + w  # f32, rounded as the kernel rounds
+    over = int((dist[dst] > via).sum())
+    check(over == 0, f"SSSP: {over} edges relax further (d > d[s] + w)")
+    tight = (via == dist[dst]) & reached[src]
+    has_tight = np.zeros(n, bool)
+    has_tight[dst[tight]] = True
+    need = reached.copy()
+    need[start] = False
+    loose = int((need & ~has_tight).sum())
+    check(loose == 0, f"SSSP: {loose} reached nodes have no tight in-edge")
+    a = sp.csr_matrix((np.ones(src.size, np.float32), (src, dst)),
+                      shape=(n, n))
+    bfs = np.zeros(n, bool)
+    bfs[breadth_first_order(a, start, directed=True,
+                            return_predecessors=False)] = True
+    check(np.array_equal(bfs, reached),
+          f"SSSP: {int((bfs != reached).sum())} nodes differ in "
+          "reachability from scipy's BFS")
+    best = min(runs)
+    emit({"phase": "sssp", "scale": SCALE, "n": n, "m": int(src.size),
+          "start_node": start, "start_out_degree": int(out_degree[start]),
+          "node0_out_degree": int(out_degree[0]), "weights": "default_rng(3).random(m) * 4",
+          "build_directed_s": graph_s, "weighted_plan_build_s": build_s,
+          "rounds": res.ran_iterations, "run_s": runs, "best_s": best,
+          "per_round_ms": best / res.ran_iterations * 1e3,
+          "launches": launches, "reached": int(reached.sum()),
+          "max_distance": float(dist[reached].max()),
+          "host_check_s": time.perf_counter() - t0})
+    return eng, res, launches
+
+
+def bound_of(nbytes, nops):
+    """(ms, "bytes" | "operations"): the larger of the two least times."""
+    tb, to = nbytes / HBM_BYTES_PER_S, nops / SCALAR_OPS_PER_S
+    return max(tb, to) * 1e3, "bytes" if tb >= to else "operations"
+
+
+def row(name, path, source, replaces, launches, errs, run, plain,
+        library, nbytes, nops, shapes):
+    """One line of the kernel table; ``library`` is (what, call) or a
+    string saying why there is no such call."""
+    bound, by = bound_of(nbytes, nops)
+    lib_name, lib_call = (library, None) if isinstance(library, str) \
+        else library
+    return {"name": name, "path": path, "route": "cuda",
+            "source": f"graph_tpu_torch/csrc/{source}",
+            "replaces": replaces, "launches": launches[name],
+            "max_abs_err": errs[name], "ms": time_ms(run),
+            "plain_ms": time_ms(plain), "bound_ms": bound, "bound_by": by,
+            "library_ms": None if lib_call is None else time_ms(lib_call),
+            "library": lib_name, "bytes": nbytes, "shapes": shapes}
 
 
 def run():
@@ -200,6 +456,7 @@ def run():
     dev = torch.device("cuda")
     card = card_line()
     print(card, flush=True)
+    k = kernels
 
     # 1. card and kernel build (one nvcc per source, all started together)
     t0 = time.perf_counter()
@@ -209,14 +466,15 @@ def run():
           "kernels_built": built,
           "build_s": time.perf_counter() - t0})
 
-    # 2. kernels against their plain versions at edge-case shapes
-    errs = {"k1_gather": 0, "k2_reduce": 0}
+    # 2. kernels against their plain versions at edge-case shapes, then
+    # the algorithms on small graphs against the CPU path
+    errs = {name: 0 for name in k.LAUNCHES}
     for seed in (13, 14):
-        compare_kernels(kernels, *edge_cases(dev, seed), errs)
+        check_edge_cases(k, edge_cases(dev, seed), errs)
     emit({"phase": "kernels_edge_cases", "max_abs_err": dict(errs)})
     emit({"phase": "small_graphs", **small_graph_checks(gtt, dev)})
 
-    # 3. the main path
+    # 3. the PageRank path
     n = 1 << SCALE
     t0 = time.perf_counter()
     src, dst = cached_rmat(SCALE, os.path.join(ROOT, ".cache", "rmat"))
@@ -234,19 +492,9 @@ def run():
 
     cfg = gtt.PageRankConfig(engine="plan", max_iterations=ITERS,
                              tolerance=0.0)
-    kernels.reset_launches()
-    res = gtt.page_rank(graph, cfg)
-    launches = dict(kernels.LAUNCHES)
-    for name, count in launches.items():
-        check(count >= ITERS, f"{name} launched {count} times in one "
-              f"PageRank run, expected at least {ITERS}")
-    runs = []
-    for _ in range(3):
-        _sync()
-        t0 = time.perf_counter()
-        res = gtt.page_rank(graph, cfg)
-        _sync()
-        runs.append(time.perf_counter() - t0)
+    res, pr_launches = drive(k, "pagerank", lambda: gtt.page_rank(graph, cfg),
+                             lambda r: r.ran_iterations)
+    runs, res = best_of_3(lambda: gtt.page_rank(graph, cfg))
     best = min(runs)
     scores = res.scores
     check(res.ran_iterations == ITERS, f"ran {res.ran_iterations} iterations")
@@ -264,63 +512,118 @@ def run():
           "score_sum": total, "run_s": runs, "best_s": best,
           "gteps": gteps,
           "roofline_gteps_12B_per_edge": HBM_BYTES_PER_S / BYTES_PER_EDGE / 1e9,
-          "launches": launches,
+          "launches": pr_launches})
+
+    # 4. the WCC and SSSP paths, on the same RMAT edges
+    sym, wcc_launches = wcc_phase(gtt, k, graph, src, dst, n)
+    weng, sssp_res, sssp_launches = sssp_phase(gtt, k, src, dst, n, dev)
+    emit({"phase": "memory",
           "peak_mem_gb": torch.cuda.max_memory_allocated() / 1e9})
 
-    # 4. the kernels at the main path's shapes: exactness, then times
+    # 5. each kernel at its path's shapes: exactness, then times
+    table = []
     plan = eng.plan
     xq = torch.round(eng.to_internal(x_t) * float(1 << 30)).to(torch.int32)
-    contrib = kernels.k1_gather_plain(xq, plan.slot_src)
-    compare_kernels(kernels, xq, plan.slot_src, contrib, plan.indptr, errs)
+    contrib = k.k1_gather_plain(xq, plan.slot_src)
+    hold(errs, "k1_gather", k.k1_gather(xq, plan.slot_src), contrib)
+    hold(errs, "k2_reduce", k.k2_reduce(contrib, plan.indptr),
+         k.k2_reduce_plain(contrib, plan.indptr))
     rows = torch.repeat_interleave(
         torch.arange(n, device=dev), torch.diff(plan.indptr))
-    lib2 = torch.zeros(n, dtype=torch.int32, device=dev)
-    lib2.index_add_(0, rows, contrib)
-    check(torch.equal(lib2, kernels.k2_reduce_plain(contrib, plan.indptr)),
+    check(torch.equal(torch.zeros(n, dtype=torch.int32, device=dev)
+                      .index_add_(0, rows, contrib),
+                      k.k2_reduce_plain(contrib, plan.indptr)),
           "index_add_ yardstick disagrees with k2_reduce")
+    pr_shapes = f"n={n}, m={m}"
+    table.append(row(
+        "k1_gather", "pagerank", "k1_gather.cu",
+        "graph_tpu/engine/kernels.py:253", pr_launches, errs,
+        lambda: k.k1_gather(xq, plan.slot_src),
+        lambda: k.k1_gather_plain(xq, plan.slot_src),
+        ("index_select", lambda: torch.index_select(xq, 0, plan.slot_src)),
+        8 * m + 4 * n, 0, pr_shapes))
+    table.append(row(
+        "k2_reduce", "pagerank", "k2_reduce.cu",
+        "graph_tpu/engine/kernels.py:603", pr_launches, errs,
+        lambda: k.k2_reduce(contrib, plan.indptr),
+        lambda: k.k2_reduce_plain(contrib, plan.indptr),
+        ("index_add_", lambda: torch.zeros(
+            n, dtype=torch.int32, device=dev).index_add_(0, rows, contrib)),
+        4 * m + 8 * (n + 1) + 4 * n, m, pr_shapes))
+    del rows, contrib, xq
 
-    def k2_library():
-        torch.zeros(n, dtype=torch.int32, device=dev).index_add_(
-            0, rows, contrib)
+    # WCC shapes: the first round's hook, labels = node ids
+    sp_ = sym.plan
+    labels = torch.arange(n, dtype=torch.int32, device=dev)
+    c_sym = k.k1_gather_plain(labels, sp_.slot_src)
+    hold(errs, "k1_gather", k.k1_gather(labels, sp_.slot_src), c_sym)
+    hold(errs, "k2_reduce_min", k.k2_reduce_min(c_sym, sp_.indptr, "imin"),
+         k.k2_reduce_min_plain(c_sym, sp_.indptr, "imin"))
+    rows = torch.repeat_interleave(
+        torch.arange(n, device=dev), torch.diff(sp_.indptr))
+    ms_ = sp_.m
+    wcc_shapes = f"n={n}, m_sym={ms_}"
+    table.append(row(
+        "k1_gather", "wcc", "k1_gather.cu",
+        "graph_tpu/engine/kernels.py:253", wcc_launches, errs,
+        lambda: k.k1_gather(labels, sp_.slot_src),
+        lambda: k.k1_gather_plain(labels, sp_.slot_src),
+        ("index_select",
+         lambda: torch.index_select(labels, 0, sp_.slot_src)),
+        8 * ms_ + 4 * n, 0, wcc_shapes))
+    table.append(row(
+        "k2_reduce_min", "wcc (op=imin)", "k2_reduce.cu",
+        "graph_tpu/engine/kernels.py:603", wcc_launches, errs,
+        lambda: k.k2_reduce_min(c_sym, sp_.indptr, "imin"),
+        lambda: k.k2_reduce_min_plain(c_sym, sp_.indptr, "imin"),
+        ("scatter_reduce_ amin", lambda: torch.full(
+            (n,), k.IMAX, dtype=torch.int32, device=dev).scatter_reduce_(
+                0, rows, c_sym, "amin")),
+        4 * ms_ + 8 * (n + 1) + 4 * n, ms_, wcc_shapes))
+    del rows, c_sym, labels
 
-    bytes1 = 4 * m + 4 * m + 4 * n
-    bytes2 = 4 * m + 8 * (n + 1) + 4 * n
-    bound1 = bytes1 / HBM_BYTES_PER_S * 1e3
-    bound2 = max(bytes2 / HBM_BYTES_PER_S, m / SCALAR_OPS_PER_S) * 1e3
-    table = [
-        {"name": "k1_gather", "route": "cuda",
-         "source": "graph_tpu_torch/csrc/k1_gather.cu",
-         "replaces": "graph_tpu/engine/kernels.py:253",
-         "launches": launches["k1_gather"],
-         "max_abs_err": errs["k1_gather"],
-         "ms": time_ms(lambda: kernels.k1_gather(xq, plan.slot_src)),
-         "plain_ms": time_ms(
-             lambda: kernels.k1_gather_plain(xq, plan.slot_src)),
-         "bound_ms": bound1, "bound_by": "bytes",
-         "library_ms": time_ms(
-             lambda: torch.index_select(xq, 0, plan.slot_src))},
-        {"name": "k2_reduce", "route": "cuda",
-         "source": "graph_tpu_torch/csrc/k2_reduce.cu",
-         "replaces": "graph_tpu/engine/kernels.py:603",
-         "launches": launches["k2_reduce"],
-         "max_abs_err": errs["k2_reduce"],
-         "ms": time_ms(lambda: kernels.k2_reduce(contrib, plan.indptr)),
-         "plain_ms": time_ms(
-             lambda: kernels.k2_reduce_plain(contrib, plan.indptr)),
-         "bound_ms": bound2,
-         "bound_by": ("bytes" if bytes2 / HBM_BYTES_PER_S
-                      >= m / SCALAR_OPS_PER_S else "operations"),
-         "library_ms": time_ms(k2_library)},
-    ]
+    # SSSP shapes: a relax of the final distances (internal order)
+    wp = weng.plan
+    dist = weng.to_internal(sssp_res.distances).clamp(max=k.INF)
+    c_w = k.k1_gather_weighted_plain(dist, wp.slot_src, wp.slot_w, "add",
+                                     False)
+    hold(errs, "k1_gather_weighted",
+         k.k1_gather_weighted(dist, wp.slot_src, wp.slot_w, "add", False),
+         c_w)
+    c_bits = c_w.view(torch.int32)
+    hold(errs, "k2_reduce_min", k.k2_reduce_min(c_bits, wp.indptr, "min"),
+         k.k2_reduce_min_plain(c_bits, wp.indptr, "min"))
+    rows = torch.repeat_interleave(
+        torch.arange(n, device=dev), torch.diff(wp.indptr))
+    sssp_shapes = f"n={n}, m={m}"
+    table.append(row(
+        "k1_gather_weighted", "sssp (combine=add)", "k1_gather.cu",
+        "graph_tpu/engine/kernels.py:253", sssp_launches, errs,
+        lambda: k.k1_gather_weighted(dist, wp.slot_src, wp.slot_w, "add",
+                                     False),
+        lambda: k.k1_gather_weighted_plain(dist, wp.slot_src, wp.slot_w,
+                                           "add", False),
+        "none: no single PyTorch call gathers and adds",
+        12 * m + 4 * n, m, sssp_shapes))
+    table.append(row(
+        "k2_reduce_min", "sssp (op=min)", "k2_reduce.cu",
+        "graph_tpu/engine/kernels.py:603", sssp_launches, errs,
+        lambda: k.k2_reduce_min(c_bits, wp.indptr, "min"),
+        lambda: k.k2_reduce_min_plain(c_bits, wp.indptr, "min"),
+        ("scatter_reduce_ amin", lambda: torch.full(
+            (n,), k.INF_BITS, dtype=torch.int32, device=dev).scatter_reduce_(
+                0, rows, c_bits, "amin")),
+        4 * m + 8 * (n + 1) + 4 * n, m, sssp_shapes))
+    for t in table:  # the exactness of every kernel, edge cases included
+        t["max_abs_err"] = errs[t["name"]]
+
     iter_ms = best / ITERS * 1e3
-    emit({"phase": "kernel_detail", "bytes": {"k1_gather": bytes1,
-                                              "k2_reduce": bytes2},
-          "gb_per_s": {t["name"]: (bytes1 if t["name"] == "k1_gather"
-                                   else bytes2) / t["ms"] / 1e6
+    emit({"phase": "kernel_detail",
+          "gb_per_s": {f"{t['name']}/{t['path']}": t["bytes"] / t["ms"] / 1e6
                        for t in table},
           "pagerank_iteration_ms": iter_ms,
-          "k1_k2_share_of_iteration": (table[0]["ms"] + table[1]["ms"])
-          / iter_ms,
+          "k1_k2_share_of_pagerank_iteration": (table[0]["ms"]
+                                                + table[1]["ms"]) / iter_ms,
           "max_in_degree": int(torch.diff(plan.indptr).max())})
     print(card, flush=True)
     emit({"kernels": table})

@@ -21,11 +21,10 @@ from typing import Optional
 import numpy as np
 import torch
 
+from graph_tpu_torch.device import synchronize
 from graph_tpu_torch.engine.engine import EdgeEngine, engine_for
+from graph_tpu_torch.errors import not_ported
 from graph_tpu_torch.graph.csr import DirectedCsrGraph
-
-_NOT_PORTED = ("{} is not ported yet: the paths that do not use the "
-               "EdgeEngine come with ROADMAP queue 1, item 8")
 
 
 @dataclasses.dataclass(frozen=True)
@@ -72,10 +71,9 @@ def page_rank(graph: DirectedCsrGraph,
     """
     config = config or PageRankConfig()
     if config.log_progress:
-        raise NotImplementedError(_NOT_PORTED.format("log_progress=True"))
+        raise not_ported("log_progress=True")
     if config.engine in ("cumsum", "scatter"):
-        raise NotImplementedError(_NOT_PORTED.format(
-            f"engine={config.engine!r}"))
+        raise not_ported(f"engine={config.engine!r}")
     if config.engine not in ("auto", "plan"):
         raise ValueError(f"unknown PageRank engine {config.engine!r}")
     return _page_rank_plan(graph, config)
@@ -87,11 +85,6 @@ def _graph_engine(graph: DirectedCsrGraph) -> EdgeEngine:
     return engine_for(graph, "fwd", lambda: EdgeEngine.build(
         graph.csr_out.sources, graph.csr_out.targets, graph.node_count,
         relabel="degree", device=graph.device))
-
-
-def _sync(device: torch.device) -> None:
-    if device.type == "cuda":
-        torch.cuda.synchronize(device)
 
 
 def _page_rank_plan(graph: DirectedCsrGraph,
@@ -129,7 +122,7 @@ def _page_rank_plan(graph: DirectedCsrGraph,
     if err_t is not None:
         err = err_t.item()
     scores = eng.to_public(scores)
-    _sync(scores.device)
+    synchronize(scores.device)
     micros = int((time.perf_counter() - start) * 1e6)
     return PageRankResult(scores=scores, ran_iterations=it, error=err,
                           micros=micros)

@@ -20,3 +20,9 @@ def resolve_device(device=None) -> torch.device:
             "graph_tpu_torch runs on a CUDA device and none is available; "
             "pass device='cpu' to run on the CPU")
     return torch.device("cuda")
+
+
+def synchronize(device: torch.device) -> None:
+    """Wait for the card's queued work (a host timer's end point)."""
+    if device.type == "cuda":
+        torch.cuda.synchronize(device)

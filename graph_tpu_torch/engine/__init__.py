@@ -2,8 +2,9 @@
 
 The port of ``graph_tpu.engine``: an edge list is compiled once into a
 destination-sorted plan (:mod:`.plan`), and the engine (:mod:`.engine`)
-runs sums over it through the hand-written CUDA kernels K1 and K2
-(:mod:`.kernels`, sources in ``graph_tpu_torch/csrc``).
+runs sums and mins over it, optionally edge-weighted, through the
+hand-written CUDA kernels K1 and K2 (:mod:`.kernels`, sources in
+``graph_tpu_torch/csrc``).
 """
 
 from graph_tpu_torch.engine.engine import EdgeEngine, engine_for

@@ -1,13 +1,14 @@
 """Build and load the hand-written CUDA kernels of ``graph_tpu_torch/csrc``.
 
-Each ``<name>.cu`` has a plain C interface and is compiled by ``nvcc``
-for Hopper (``sm_90a``) into its own shared library, loaded with
-``ctypes``.  Libraries go into ``graph_tpu_torch/build/`` (listed in
-``.gitignore``) under a name that carries the hash of the source and the
-flags, so an edited source is rebuilt at its next use and an unchanged
-one is not.  Nothing is built when the module is imported: a wrapper
-builds its kernel at its first launch, and :func:`build` builds several
-at once, one ``nvcc`` process each, all started together.
+Each ``<source>.cu`` has a plain C interface, one ``extern "C"`` entry
+point per kernel, and is compiled by ``nvcc`` for Hopper (``sm_90a``)
+into its own shared library, loaded with ``ctypes``.  Libraries go into
+``graph_tpu_torch/build/`` (listed in ``.gitignore``) under a name that
+carries the hash of the source and the flags, so an edited source is
+rebuilt at its next use and an unchanged one is not.  Nothing is built
+when the module is imported: a wrapper builds its kernel's source at its
+first launch, and :func:`build` builds several sources at once, one
+``nvcc`` process each, all started together.
 """
 
 from __future__ import annotations
@@ -26,13 +27,26 @@ NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC")
 
 _P = ctypes.c_void_p
-#: The C entry point of each kernel: (pointers..., count, stream) -> cudaError.
+_I64 = ctypes.c_longlong
+_I32 = ctypes.c_int
+#: The C entry point of each kernel: (pointers..., count, [options],
+#: stream) -> cudaError.
 SIGNATURES = {
-    "k1_gather": (_P, _P, _P, ctypes.c_longlong, _P),
-    "k2_reduce": (_P, _P, _P, ctypes.c_longlong, _P),
+    "k1_gather": (_P, _P, _P, _I64, _P),
+    "k1_gather_weighted": (_P, _P, _P, _P, _I64, _I32, _I32, _P),
+    "k2_reduce": (_P, _P, _P, _I64, _P),
+    "k2_reduce_min": (_P, _P, _P, _I64, _I32, _P),
+}
+#: The source (``csrc/<source>.cu``) that defines each entry point.
+SOURCES = {
+    "k1_gather": "k1_gather",
+    "k1_gather_weighted": "k1_gather",
+    "k2_reduce": "k2_reduce",
+    "k2_reduce_min": "k2_reduce",
 }
 
-_loaded: dict = {}
+_libs: dict = {}
+_fns: dict = {}
 
 
 def _nvcc() -> str:
@@ -43,52 +57,58 @@ def _nvcc() -> str:
     return path
 
 
-def library_path(name: str) -> Path:
-    """Where the library built from ``csrc/<name>.cu`` lives."""
+def library_path(source: str) -> Path:
+    """Where the library built from ``csrc/<source>.cu`` lives."""
     h = hashlib.blake2b(digest_size=8)
-    h.update((CSRC / f"{name}.cu").read_bytes())
+    h.update((CSRC / f"{source}.cu").read_bytes())
     h.update("\0".join(NVCC_FLAGS).encode())
-    return BUILD_DIR / f"{name}-{h.hexdigest()}.so"
+    return BUILD_DIR / f"{source}-{h.hexdigest()}.so"
 
 
 def build(names=tuple(SIGNATURES)) -> list:
-    """Compile the named kernels that have no current library, in parallel.
+    """Compile the sources of the named kernels that have no current
+    library, in parallel.
 
-    Returns the names that were compiled; raises with nvcc's output when
-    one fails."""
-    todo = [n for n in names if not library_path(n).exists()]
+    Returns the sources that were compiled; raises with nvcc's output
+    when one fails."""
+    sources = sorted({SOURCES[n] for n in names})
+    todo = [s for s in sources if not library_path(s).exists()]
     if not todo:
         return []
     nvcc = _nvcc()
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
     procs = []
-    for name in todo:
-        out = library_path(name)
+    for source in todo:
+        out = library_path(source)
         tmp = out.with_name(f"{out.stem}.{os.getpid()}.tmp.so")
-        cmd = [nvcc, *NVCC_FLAGS, "-o", str(tmp), str(CSRC / f"{name}.cu")]
-        procs.append((name, out, tmp, subprocess.Popen(
+        cmd = [nvcc, *NVCC_FLAGS, "-o", str(tmp), str(CSRC / f"{source}.cu")]
+        procs.append((source, out, tmp, subprocess.Popen(
             cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
             text=True)))
     failed = []
-    for name, out, tmp, proc in procs:
+    for source, out, tmp, proc in procs:
         log, _ = proc.communicate()
         if proc.returncode == 0:
             os.replace(tmp, out)
         else:
-            failed.append(f"{name}: nvcc exit {proc.returncode}\n{log}")
+            failed.append(f"{source}: nvcc exit {proc.returncode}\n{log}")
     if failed:
         raise RuntimeError("kernel build failed:\n" + "\n".join(failed))
     return todo
 
 
-def load(name: str) -> ctypes.CDLL:
-    """The loaded library of kernel ``name``, built first if needed."""
-    lib = _loaded.get(name)
-    if lib is None:
-        build((name,))
-        lib = ctypes.CDLL(str(library_path(name)))
+def load(name: str):
+    """The C entry point of kernel ``name``, its source built first if
+    needed."""
+    fn = _fns.get(name)
+    if fn is None:
+        source = SOURCES[name]
+        lib = _libs.get(source)
+        if lib is None:
+            build((name,))
+            lib = _libs[source] = ctypes.CDLL(str(library_path(source)))
         fn = getattr(lib, name)
         fn.argtypes = SIGNATURES[name]
         fn.restype = ctypes.c_int
-        _loaded[name] = lib
-    return lib
+        _fns[name] = fn
+    return fn

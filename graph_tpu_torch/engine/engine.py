@@ -1,9 +1,17 @@
 """EdgeEngine — apply a compiled EdgePlan on its device.
 
-Counterpart of ``graph_tpu.engine.engine``.  ``engine.spmv(x)`` computes
-``y[d] = sum over edges (s -> d) of x[s]`` through the K1 and K2 kernels
-(:mod:`graph_tpu_torch.engine.kernels`), in the same int32 fixed point as
-the JAX engine, so the two agree bit for bit.
+Counterpart of ``graph_tpu.engine.engine``.  ``engine.apply`` computes
+the semiring edge-map-reduce ``y[d] = reduce over edges (s -> d) of
+combine(x[s], w)`` through the K1 and K2 kernels
+(:mod:`graph_tpu_torch.engine.kernels`), in the same number formats as the
+JAX engine, so the two agree bit for bit:
+
+* ``reduce="sum"``: int32 fixed point, ``round(v * 2**30)`` per slot,
+  wraparound sums, ``acc / 2**30``;
+* ``reduce="min"``: the f32 values' int32 bit patterns, integer min
+  (IEEE order for the nonnegative values the contract allows), empty
+  rows 3e38;
+* ``smin_int``: int32 min, empty rows 2**31-1.
 
 On a GPU a node permutation is an index gather, so the JAX engine's
 sort-based and gather-plan permutes become ``x[iperm]`` and ``y[perm]``.
@@ -16,11 +24,9 @@ import weakref
 import numpy as np
 import torch
 
-from graph_tpu_torch.engine.kernels import FIXED_BITS, k1_gather, k2_reduce
+from graph_tpu_torch.engine.kernels import (
+    FIXED_BITS, k1_gather, k1_gather_weighted, k2_reduce, k2_reduce_min)
 from graph_tpu_torch.engine.plan import EdgePlan, load_or_build_plan
-
-_NOT_PORTED = ("{} is not ported yet: the min, relax and weighted paths "
-               "come with ROADMAP queue 1, item 5")
 
 
 class EdgeEngine:
@@ -50,12 +56,14 @@ class EdgeEngine:
             self.iperm[self.perm] = torch.arange(plan.n, device=self.device)
 
     @classmethod
-    def build(cls, src, dst, n, *, relabel=None, cache_dir=None,
+    def build(cls, src, dst, n, *, values=None, relabel=None, cache_dir=None,
               device=None) -> "EdgeEngine":
         """Build (or load from the plan cache — ``cache_dir`` or
-        $GRAPH_TPU_TORCH_PLAN_CACHE) the engine for an edge list."""
+        $GRAPH_TPU_TORCH_PLAN_CACHE) the engine for an edge list, with
+        optional edge ``values``."""
         return cls(load_or_build_plan(src, dst, n, cache_dir=cache_dir,
-                                      relabel=relabel, device=device))
+                                      relabel=relabel, device=device,
+                                      values=values))
 
     def to_internal(self, x: torch.Tensor) -> torch.Tensor:
         """x in API node order -> the plan's internal order."""
@@ -64,6 +72,11 @@ class EdgeEngine:
     def to_public(self, y: torch.Tensor) -> torch.Tensor:
         """y in the plan's internal order -> API node order."""
         return y if self.perm is None else y[self.perm]
+
+    def _check_x(self, x: torch.Tensor, dtype: torch.dtype) -> None:
+        if x.shape != (self.plan.n,) or x.dtype != dtype:
+            raise ValueError(f"x must be ({self.plan.n},) {dtype}, got "
+                             f"{tuple(x.shape)} {x.dtype}")
 
     def spmv(self, x: torch.Tensor, bound: float = 1.0,
              internal: bool = False) -> torch.Tensor:
@@ -83,37 +96,83 @@ class EdgeEngine:
               internal: bool = False) -> torch.Tensor:
         """Semiring edge-map-reduce ``y[d] = reduce_{s->d} combine(x[s], w)``.
 
-        Only (combine="none", reduce="sum") — :meth:`spmv` — is ported.
+        combine: "none" (x[s]), "mul" (x[s] * w), "add" (x[s] + w, the
+        tropical combine); reduce: "sum" or "min".  Named instances:
+        (none, sum) = :meth:`spmv`, (add, min) = :meth:`relax`, (none,
+        min) = :meth:`smin`.  x: (n,) f32 -> y: (n,) f32.
+
+        reduce="sum" accumulates in int32 fixed point; see :meth:`spmv`
+        for the ``bound`` contract, which only linear reductions take.
+        reduce="min" requires values exact in f32 and nonnegative (IEEE
+        order == integer order); empty rows get 3e38.  ``internal=True``
+        skips the relabel permutes.
         """
         if combine not in ("none", "add", "mul"):
             raise ValueError(f"combine must be none|add|mul, got {combine!r}")
         if reduce not in ("sum", "min"):
             raise ValueError(f"reduce must be sum|min, got {reduce!r}")
-        if combine != "none" or reduce != "sum":
-            raise NotImplementedError(_NOT_PORTED.format(
-                f"apply(combine={combine!r}, reduce={reduce!r})"))
-        if x.shape != (self.plan.n,) or x.dtype != torch.float32:
-            raise ValueError(f"x must be ({self.plan.n},) float32, got "
-                             f"{tuple(x.shape)} {x.dtype}")
+        if combine != "none" and self.plan.slot_w is None:
+            raise ValueError(
+                f"combine={combine!r} needs a plan built with edge values")
         if bound != 1.0:
+            if reduce != "sum" or combine == "add":
+                raise ValueError(
+                    "bound rescaling is only valid for linear reductions "
+                    "(reduce='sum' with combine 'none'/'mul')")
             return self.apply(x * float(np.float32(1.0 / bound)),
+                              combine=combine, reduce=reduce,
                               internal=internal) * bound
+        self._check_x(x, torch.float32)
         if not internal:
             x = self.to_internal(x)
-        # round(x * 2**30) commutes with the gather: quantize at n, not m
-        xq = torch.round(x * float(1 << FIXED_BITS)).to(torch.int32)
-        acc = k2_reduce(k1_gather(xq, self.plan.slot_src), self.plan.indptr)
-        y = acc.to(torch.float32) / float(1 << FIXED_BITS)
+        p = self.plan
+        if reduce == "sum":
+            if combine == "none":
+                # round(x * 2**30) commutes with the gather: quantize at n
+                xq = torch.round(x * float(1 << FIXED_BITS)).to(torch.int32)
+                contrib = k1_gather(xq, p.slot_src)
+            else:  # quantized per slot, after the f32 combine
+                contrib = k1_gather_weighted(x, p.slot_src, p.slot_w,
+                                             combine, quantize=True)
+            y = k2_reduce(contrib, p.indptr).to(torch.float32) / float(
+                1 << FIXED_BITS)
+        else:
+            if combine == "none":  # a 4-byte gather of the f32 bits
+                contrib = k1_gather(x.view(torch.int32), p.slot_src)
+            else:
+                contrib = k1_gather_weighted(
+                    x, p.slot_src, p.slot_w, combine,
+                    quantize=False).view(torch.int32)
+            y = k2_reduce_min(contrib, p.indptr, "min").view(torch.float32)
         return y if internal else self.to_public(y)
 
-    def relax(self, dist):
-        raise NotImplementedError(_NOT_PORTED.format("relax"))
+    def relax(self, dist: torch.Tensor,
+              internal: bool = False) -> torch.Tensor:
+        """y[d] = min over weighted edges (s -> d) of dist[s] + w.
 
-    def smin(self, x):
-        raise NotImplementedError(_NOT_PORTED.format("smin"))
+        The tropical-semiring SpMV: one Bellman-Ford relaxation round.
+        Requires a plan built with edge values.
+        """
+        return self.apply(dist, combine="add", reduce="min",
+                          internal=internal)
 
-    def smin_int(self, x):
-        raise NotImplementedError(_NOT_PORTED.format("smin_int"))
+    def smin(self, x: torch.Tensor, internal: bool = False) -> torch.Tensor:
+        """y[d] = min over edges (s -> d) of x[s]; empty rows get 3e38.
+
+        Values must be nonnegative and exact in f32.
+        """
+        return self.apply(x, reduce="min", internal=internal)
+
+    def smin_int(self, x: torch.Tensor,
+                 internal: bool = False) -> torch.Tensor:
+        """y[d] = min over edges (s -> d) of int32 x[s]; empty rows get
+        2**31-1.  Exact for any int32 values: the WCC label path."""
+        self._check_x(x, torch.int32)
+        if not internal:
+            x = self.to_internal(x)
+        y = k2_reduce_min(k1_gather(x, self.plan.slot_src), self.plan.indptr,
+                          "imin")
+        return y if internal else self.to_public(y)
 
 
 # ---------------------------------------------------------------------------

@@ -9,7 +9,10 @@ so the port's plan is a destination-sorted CSR of sources:
 * slots sorted by (internal destination, internal source);
 * ``indptr`` (n+1,) int64: the slots of destination d are
   ``indptr[d]:indptr[d+1]``;
-* ``slot_src`` (m,) int32: each slot's internal source.
+* ``slot_src`` (m,) int32: each slot's internal source;
+* ``slot_w`` (m,) f32 or None: each slot's edge value, for plans built
+  with ``values=`` (weights follow their edges through the sort, so
+  duplicate edges keep their own weights).
 
 ``relabel="degree"`` numbers nodes by descending out-degree, ties by id,
 exactly as the JAX plan does (``perm`` maps original id -> internal id),
@@ -34,7 +37,7 @@ from graph_tpu_torch.device import resolve_device
 
 logger = logging.getLogger(__name__)
 
-FORMAT_VERSION = 1
+FORMAT_VERSION = 2  # v2: slot_w (edge values)
 
 
 @dataclasses.dataclass(frozen=True)
@@ -47,20 +50,26 @@ class EdgePlan:
     slot_src: torch.Tensor  # (m,) int32 internal source of each slot
     #: (n,) int32 original id -> internal id, or None without relabel
     perm: Optional[torch.Tensor] = None
+    #: (m,) f32 edge value of each slot, or None for a plan without values
+    slot_w: Optional[torch.Tensor] = None
 
     @property
     def device(self) -> torch.device:
         return self.indptr.device
 
     def save(self, path: str) -> None:
-        """Snapshot the plan as npz with a format-version header."""
+        """Snapshot the plan as npz with a header (n, m, format version,
+        whether it has edge values)."""
         np.savez(
             path,
-            __header__=np.array([self.n, self.m, FORMAT_VERSION], np.int64),
+            __header__=np.array([self.n, self.m, FORMAT_VERSION,
+                                 self.slot_w is not None], np.int64),
             indptr=self.indptr.cpu().numpy(),
             slot_src=self.slot_src.cpu().numpy(),
             perm=(np.zeros(0, np.int32) if self.perm is None
                   else self.perm.cpu().numpy()),
+            slot_w=(np.zeros(0, np.float32) if self.slot_w is None
+                    else self.slot_w.cpu().numpy()),
         )
 
     @staticmethod
@@ -69,20 +78,26 @@ class EdgePlan:
         device = resolve_device(device)
         with np.load(path) as z:
             h = z["__header__"]
-            if h.size != 3 or int(h[2]) != FORMAT_VERSION:
+            version = int(h[2]) if h.size >= 3 else -1
+            if h.size != 4 or version != FORMAT_VERSION:
                 raise ValueError(
-                    f"{path}: plan format {int(h[-1])} != {FORMAT_VERSION}; "
+                    f"{path}: plan format {version} != {FORMAT_VERSION}; "
                     "rebuild the plan")
-            n, m = int(h[0]), int(h[1])
+            n, m, has_w = int(h[0]), int(h[1]), bool(h[3])
             indptr = torch.from_numpy(z["indptr"]).to(device)
             slot_src = torch.from_numpy(z["slot_src"]).to(device)
             perm = z["perm"]
+            slot_w = z["slot_w"]
         if indptr.shape != (n + 1,) or slot_src.shape != (m,) or (
-                perm.size and perm.shape != (n,)):
+                perm.size and perm.shape != (n,)) or (
+                has_w and (slot_w.shape != (m,)
+                           or slot_w.dtype != np.float32)):
             raise ValueError(f"{path}: array shapes disagree with the header")
         return EdgePlan(n=n, m=m, indptr=indptr, slot_src=slot_src,
                         perm=torch.from_numpy(perm).to(device)
-                        if perm.size else None)
+                        if perm.size else None,
+                        slot_w=torch.from_numpy(slot_w).to(device)
+                        if has_w else None)
 
 
 def _as_ids(a, device: torch.device) -> torch.Tensor:
@@ -92,23 +107,44 @@ def _as_ids(a, device: torch.device) -> torch.Tensor:
     return torch.from_numpy(np.ascontiguousarray(a, dtype=np.int64)).to(device)
 
 
+def _as_values(values, device: torch.device) -> Optional[torch.Tensor]:
+    """Edge values as an f32 tensor on ``device`` (None stays None)."""
+    if values is None:
+        return None
+    if isinstance(values, torch.Tensor):
+        return values.to(device=device, dtype=torch.float32)
+    return torch.from_numpy(
+        np.ascontiguousarray(values, dtype=np.float32)).to(device)
+
+
 def _compile(src: torch.Tensor, dst: torch.Tensor, n: int,
-             perm: Optional[torch.Tensor]) -> EdgePlan:
+             perm: Optional[torch.Tensor],
+             values: Optional[torch.Tensor]) -> EdgePlan:
     m = src.numel()
     if dst.numel() != m:
         raise ValueError(f"src has {m} edges, dst {dst.numel()}")
+    if values is not None and values.numel() != m:
+        raise ValueError(f"values has {values.numel()} entries, src {m}")
     if m and (int(torch.minimum(src.min(), dst.min())) < 0
               or int(torch.maximum(src.max(), dst.max())) >= n):
         raise ValueError(f"edge endpoints must lie in [0, {n})")
     if perm is not None:
         p = perm.long()
         src, dst = p[src], p[dst]
-    # one int64 key orders slots by (dst, src); n < 2**31 keeps it exact
-    key = torch.sort(dst * n + src).values
+    # one int64 key orders slots by (dst, src); n < 2**31 keeps it exact.
+    # Weights follow their slots: the sort's indices gather them, so
+    # duplicate edges keep their own (stable: the same plan every build).
+    slot_w = None
+    if values is None:
+        key = torch.sort(dst * n + src).values
+    else:
+        key, order = torch.sort(dst * n + src, stable=True)
+        slot_w = values[order]
     slot_src = (key % max(n, 1)).to(torch.int32)
     indptr = torch.zeros(n + 1, dtype=torch.int64, device=src.device)
     torch.cumsum(torch.bincount(dst, minlength=n), 0, out=indptr[1:])
-    return EdgePlan(n=n, m=m, indptr=indptr, slot_src=slot_src, perm=perm)
+    return EdgePlan(n=n, m=m, indptr=indptr, slot_src=slot_src, perm=perm,
+                    slot_w=slot_w)
 
 
 def degree_perm(src: torch.Tensor, n: int) -> torch.Tensor:
@@ -124,11 +160,12 @@ def degree_perm(src: torch.Tensor, n: int) -> torch.Tensor:
 
 
 def build_plan(src, dst, n: int, relabel: Optional[str] = None,
-               device=None) -> EdgePlan:
+               device=None, values=None) -> EdgePlan:
     """Compile an edge list (numpy arrays or tensors) into an EdgePlan.
 
-    The plan gathers x[src] and sums into y[dst].  ``relabel="degree"``
+    The plan gathers x[src] and reduces into y[dst].  ``relabel="degree"``
     builds it on the internal descending-out-degree node order.
+    ``values`` (m,) are the edge values (weights), stored as f32 per slot.
     """
     if relabel not in (None, "degree"):
         raise ValueError(f"relabel must be None or 'degree', got {relabel!r}")
@@ -138,13 +175,13 @@ def build_plan(src, dst, n: int, relabel: Optional[str] = None,
         raise OverflowError(f"n = {n} does not fit the plan's int32 sources")
     src_t, dst_t = _as_ids(src, device), _as_ids(dst, device)
     perm = degree_perm(src_t, n) if relabel == "degree" else None
-    return _compile(src_t, dst_t, n, perm)
+    return _compile(src_t, dst_t, n, perm, _as_values(values, device))
 
 
 def plan_from_numpy(src: np.ndarray, dst: np.ndarray, n: int,
                     perm: Optional[np.ndarray] = None,
-                    device=None) -> EdgePlan:
-    """Compile numpy edge arrays with a given node order.
+                    device=None, values=None) -> EdgePlan:
+    """Compile numpy edge arrays (and values) with a given node order.
 
     ``perm`` (original id -> internal id), when given, is used as the
     plan's internal order; it may come from a ``graph_tpu`` EdgePlan, so
@@ -161,35 +198,40 @@ def plan_from_numpy(src: np.ndarray, dst: np.ndarray, n: int,
                 np.sort(perm), np.arange(n)):
             raise ValueError("perm must be a permutation of range(n)")
         perm_t = torch.from_numpy(perm.astype(np.int32)).to(device)
-    return _compile(_as_ids(src, device), _as_ids(dst, device), n, perm_t)
+    return _compile(_as_ids(src, device), _as_ids(dst, device), n, perm_t,
+                    _as_values(values, device))
 
 
-def _host_ids(a) -> np.ndarray:
+def _host(a, dtype) -> np.ndarray:
     if isinstance(a, torch.Tensor):
         a = a.cpu().numpy()
-    return np.ascontiguousarray(a, dtype=np.int64)
+    return np.ascontiguousarray(a, dtype=dtype)
 
 
 def plan_cache_path(cache_dir: str, src, dst, n: int,
-                    relabel: Optional[str] = None) -> str:
+                    relabel: Optional[str] = None, values=None) -> str:
     """Content-addressed cache filename for a plan.
 
-    Keyed on the exact edge arrays (as int64), the node count, the
-    relabel and the plan format version: a graph rebuilt from the same
-    inputs reuses its plan across processes.
+    Keyed on the exact edge arrays (as int64), the edge values (as f32),
+    the node count, the relabel and the plan format version: a graph
+    rebuilt from the same inputs reuses its plan across processes, and a
+    changed weight misses.
     """
-    src, dst = _host_ids(src), _host_ids(dst)
+    src, dst = _host(src, np.int64), _host(dst, np.int64)
     h = hashlib.blake2b(digest_size=16)
-    h.update(np.asarray([n, src.size, FORMAT_VERSION], np.int64).tobytes())
+    h.update(np.asarray([n, src.size, FORMAT_VERSION, values is not None],
+                        np.int64).tobytes())
     h.update((relabel or "").encode() + b"\0")
     h.update(src.tobytes())
     h.update(dst.tobytes())
+    if values is not None:
+        h.update(_host(values, np.float32).tobytes())
     return os.path.join(cache_dir, f"torchplan-{h.hexdigest()}.npz")
 
 
 def load_or_build_plan(src, dst, n: int, cache_dir: Optional[str] = None,
                        relabel: Optional[str] = None,
-                       device=None) -> EdgePlan:
+                       device=None, values=None) -> EdgePlan:
     """:func:`build_plan` with cross-process persistence.
 
     ``cache_dir`` (or $GRAPH_TPU_TORCH_PLAN_CACHE) holds content-addressed
@@ -198,9 +240,11 @@ def load_or_build_plan(src, dst, n: int, cache_dir: Optional[str] = None,
     if cache_dir is None:
         cache_dir = os.environ.get("GRAPH_TPU_TORCH_PLAN_CACHE")
     if not cache_dir:
-        return build_plan(src, dst, n, relabel=relabel, device=device)
+        return build_plan(src, dst, n, relabel=relabel, device=device,
+                          values=values)
     os.makedirs(cache_dir, exist_ok=True)
-    path = plan_cache_path(cache_dir, src, dst, n, relabel=relabel)
+    path = plan_cache_path(cache_dir, src, dst, n, relabel=relabel,
+                           values=values)
     if os.path.exists(path):
         try:
             plan = EdgePlan.load(path, device=device)
@@ -208,7 +252,8 @@ def load_or_build_plan(src, dst, n: int, cache_dir: Optional[str] = None,
             return plan
         except (OSError, ValueError, KeyError) as exc:
             logger.warning("EdgePlan cache %s unreadable (%s)", path, exc)
-    plan = build_plan(src, dst, n, relabel=relabel, device=device)
+    plan = build_plan(src, dst, n, relabel=relabel, device=device,
+                      values=values)
     try:
         tmp = f"{path}.{os.getpid()}.tmp.npz"
         plan.save(tmp)

@@ -22,7 +22,8 @@ import torch
 from graph_tpu_torch.device import resolve_device
 from graph_tpu_torch.dtypes import (
     canonical_id_dtype, check_node_count_fits, torch_id_dtype)
-from graph_tpu_torch.graph.csr import Csr, CsrLayout, DirectedCsrGraph
+from graph_tpu_torch.graph.csr import (
+    Csr, CsrLayout, DirectedCsrGraph, UndirectedCsrGraph)
 
 
 def _as_tensor(a, device: torch.device, dtype=None) -> torch.Tensor:
@@ -119,3 +120,36 @@ def build_directed(
     nv = None if node_values is None else _as_tensor(node_values, device)
     return DirectedCsrGraph(csr_out=csr_out, csr_in=csr_in, node_values=nv,
                             layout=layout)
+
+
+def build_undirected(
+    src,
+    dst,
+    values=None,
+    *,
+    node_count: Optional[int] = None,
+    layout: CsrLayout = CsrLayout.UNSORTED,
+    id_dtype=np.int32,
+    node_values=None,
+    device=None,
+) -> UndirectedCsrGraph:
+    """Build an undirected graph on ``device``: both directions in one CSR.
+
+    Reference analog: undirected CSR construction feeding each input edge
+    in both directions (csr.rs:658-690); ``edge_count`` stays the input
+    edge count (targets/2).
+    """
+    device = resolve_device(device)
+    n = _infer_node_count(src, dst, node_count)
+    id_dtype = _id_dtype_of(src, id_dtype)  # before the int64 widening
+    src = _as_tensor(src, device, torch.int64)
+    dst = _as_tensor(dst, device, torch.int64)
+    vals = None
+    if values is not None:
+        values = _as_tensor(values, device)
+        vals = torch.cat([values, values])
+    csr = csr_from_coo(torch.cat([src, dst]), torch.cat([dst, src]), vals,
+                       node_count=n, layout=layout, id_dtype=id_dtype,
+                       device=device)
+    nv = None if node_values is None else _as_tensor(node_values, device)
+    return UndirectedCsrGraph(csr=csr, node_values=nv, layout=layout)

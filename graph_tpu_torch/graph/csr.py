@@ -109,3 +109,32 @@ class DirectedCsrGraph:
 
     def in_degrees(self) -> torch.Tensor:
         return self.csr_in.degrees()
+
+
+@dataclasses.dataclass(frozen=True)
+class UndirectedCsrGraph:
+    """Undirected graph: one CSR holding both edge directions.
+
+    Reference analog: ``UndirectedCsrGraph`` (csr.rs:658-690) — every
+    input edge ``(u, v)`` appears as both ``u→v`` and ``v→u``;
+    ``edge_count`` is ``targets.len() / 2`` (csr.rs:687-689).
+    """
+
+    csr: Csr
+    node_values: Optional[torch.Tensor] = None
+    layout: CsrLayout = CsrLayout.UNSORTED
+
+    @property
+    def node_count(self) -> int:
+        return self.csr.node_count
+
+    @property
+    def edge_count(self) -> int:
+        return self.csr.edge_count // 2
+
+    @property
+    def device(self) -> torch.device:
+        return self.csr.device
+
+    def degrees(self) -> torch.Tensor:
+        return self.csr.degrees()

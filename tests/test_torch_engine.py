@@ -175,5 +175,46 @@ def test_plan_save_load_and_cache(tmp_path):
         EdgePlan.load(path, device="cpu")
 
 
+def test_plan_values_snapshot_and_cache_key(tmp_path):
+    """Snapshots carry slot_w; the cache key includes the values, so a
+    changed weight misses; a format-1 snapshot asks for a rebuild."""
+    src, dst, n = _multigraph()
+    w = np.random.default_rng(3).random(src.size).astype(np.float32)
+    plan = build_plan(src, dst, n, values=w, relabel="degree", device="cpu")
+    path = str(tmp_path / "plan.npz")
+    plan.save(path)
+    back = EdgePlan.load(path, device="cpu")
+    assert back.slot_w.dtype == torch.float32
+    for f in ("indptr", "slot_src", "perm", "slot_w"):
+        assert torch.equal(getattr(back, f), getattr(plan, f))
+    build_plan(src, dst, n, device="cpu").save(path)
+    assert EdgePlan.load(path, device="cpu").slot_w is None
+
+    cache = tmp_path / "cache"
+    first = load_or_build_plan(src, dst, n, cache_dir=str(cache),
+                               values=w, device="cpu")
+    w2 = w.copy()
+    w2[17] += 1.0
+    second = load_or_build_plan(src, dst, n, cache_dir=str(cache),
+                                values=w2, device="cpu")
+    unweighted = load_or_build_plan(src, dst, n, cache_dir=str(cache),
+                                    device="cpu")
+    assert len(list(cache.iterdir())) == 3
+    assert unweighted.slot_w is None
+    assert torch.equal(first.slot_src, second.slot_src)
+    assert not torch.equal(first.slot_w, second.slot_w)
+    again = load_or_build_plan(src, dst, n, cache_dir=str(cache),
+                               values=w2, device="cpu")
+    assert torch.equal(again.slot_w, second.slot_w)
+    assert len(list(cache.iterdir())) == 3
+
+    # a format-1 snapshot: a 3-field header, no slot_w
+    np.savez(path, __header__=np.array([n, src.size, 1], np.int64),
+             indptr=plan.indptr.numpy(), slot_src=plan.slot_src.numpy(),
+             perm=plan.perm.numpy())
+    with pytest.raises(ValueError, match="rebuild"):
+        EdgePlan.load(path, device="cpu")
+
+
 def test_fixed_point_constant_matches_graph_tpu():
     assert FIXED_BITS == JAX_FIXED_BITS

@@ -6,10 +6,13 @@ import pytest
 
 import bench
 from graph_tpu.graph.build import build_directed as jax_build_directed
+from graph_tpu.graph.build import build_undirected as jax_build_undirected
 from graph_tpu.graph.build import csr_from_coo as jax_csr_from_coo
 from graph_tpu.graph.csr import CsrLayout as JaxLayout
 from graph_tpu_torch.generate import cached_rmat, host_rmat
-from graph_tpu_torch.graph import CsrLayout, build_directed, csr_from_coo
+from graph_tpu_torch.graph import (
+    CsrLayout, UndirectedCsrGraph, build_directed, build_undirected,
+    csr_from_coo)
 
 LAYOUTS = ["UNSORTED", "SORTED", "DEDUPLICATED"]
 
@@ -61,6 +64,22 @@ def test_csr_from_coo_matches_graph_tpu(layout):
                        device="cpu")
     _assert_csr_equal(got, want)
     assert got.neighbors_np(3).tolist() == want.neighbors_np(3).tolist()
+
+
+@pytest.mark.parametrize("layout", LAYOUTS)
+def test_build_undirected_matches_graph_tpu(layout):
+    src, dst, vals, n = _edges(seed=7)
+    want = jax_build_undirected(jnp.asarray(src), jnp.asarray(dst),
+                                jnp.asarray(vals), node_count=n,
+                                layout=JaxLayout[layout])
+    got = build_undirected(src, dst, vals, node_count=n,
+                           layout=CsrLayout[layout], device="cpu")
+    assert isinstance(got, UndirectedCsrGraph) and got.layout.name == layout
+    assert (got.node_count, got.edge_count) == (want.node_count,
+                                                want.edge_count)
+    _assert_csr_equal(got.csr, want.csr)
+    np.testing.assert_array_equal(got.degrees().numpy(),
+                                  np.asarray(want.degrees()))
 
 
 def test_build_directed_infers_node_count():

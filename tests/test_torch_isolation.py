@@ -50,12 +50,14 @@ def no_card(monkeypatch):
 
 
 def test_entry_points_raise_without_device_or_card(no_card):
-    from graph_tpu_torch import EdgeEngine, build_directed, csr_from_coo
+    from graph_tpu_torch import (
+        EdgeEngine, build_directed, build_undirected, csr_from_coo)
     from graph_tpu_torch.engine.plan import build_plan, plan_from_numpy
 
     src, dst = np.array([0, 1]), np.array([1, 2])
     calls = [
         lambda: build_directed(src, dst),
+        lambda: build_undirected(src, dst),
         lambda: csr_from_coo(src, dst, node_count=3),
         lambda: EdgeEngine.build(src, dst, 3),
         lambda: build_plan(src, dst, 3),
@@ -66,3 +68,4 @@ def test_entry_points_raise_without_device_or_card(no_card):
             call()
     # asked for, the CPU works
     assert build_directed(src, dst, device="cpu").device.type == "cpu"
+    assert build_undirected(src, dst, device="cpu").device.type == "cpu"

@@ -1,4 +1,4 @@
-"""K1 and K2 against their plain versions, on the card.
+"""K1 and K2, in all their forms, against their plain versions, on the card.
 
 These need a CUDA device (a CUDA kernel has no CPU mode) and skip
 without one.  The file imports neither JAX nor graph_tpu, so it also
@@ -11,8 +11,11 @@ import numpy as np
 import pytest
 import torch
 
+from graph_tpu_torch.engine import EdgeEngine
 from graph_tpu_torch.engine.kernels import (
-    LAUNCHES, k1_gather, k1_gather_plain, k2_reduce, k2_reduce_plain)
+    INF_BITS, LAUNCHES, k1_gather, k1_gather_plain, k1_gather_weighted,
+    k1_gather_weighted_plain, k2_reduce, k2_reduce_min, k2_reduce_min_plain,
+    k2_reduce_plain)
 
 
 @pytest.fixture
@@ -65,3 +68,122 @@ def test_wrappers_reject_what_the_kernels_do_not_take(cuda_device):
         k2_reduce(contrib, indptr.cpu())
     with pytest.raises(TypeError):
         k2_reduce(contrib, indptr.int())
+
+
+def _bits_equal(a, b):
+    """Bitwise equality of 4-byte tensors (f32 compared by its bits)."""
+    return torch.equal(a.view(torch.int32), b.view(torch.int32))
+
+
+def _weighted_cases(g, quantize):
+    """x, w for the weighted gather.  Quantized: |x op w| < 2, with exact
+    half-quantum ties; f32: zeros, denormals and 3e38 among x."""
+    n_src = 1 << 12
+    if quantize:
+        x = (g.random(n_src) * 2.6 - 1.3).astype(np.float32)
+        x[:64] = (2 * np.arange(64) + 1) / np.float32(2**31)  # ties
+        w = (g.random(n_src) * 2.6 - 1.3).astype(np.float32)
+    else:
+        x = (g.random(n_src) * 1e3).astype(np.float32)
+        x[:8] = 0.0
+        x[8:16] = np.arange(1, 9, dtype=np.int32).view(np.float32)
+        x[16:24] = np.float32(3e38)
+        w = (g.random(n_src) * 4).astype(np.float32)
+    return x, w
+
+
+@pytest.mark.requires_cuda
+@pytest.mark.parametrize("quantize", [True, False])
+@pytest.mark.parametrize("combine", ["add", "mul"])
+def test_k1_gather_weighted_matches_plain_on_card(cuda_device, combine,
+                                                  quantize):
+    g = np.random.default_rng(5)
+    x, wv = _weighted_cases(g, quantize)
+    _, slot_src, _, _ = _cases()
+    m = slot_src.size
+    w = g.choice(wv, m)
+    if quantize:
+        w[: m // 4] = 1.0 if combine == "mul" else 0.0  # keep the ties
+    x, slot_src, w = (torch.from_numpy(a).to(cuda_device)
+                      for a in (x, slot_src, w))
+    before = LAUNCHES["k1_gather_weighted"]
+    got = k1_gather_weighted(x, slot_src, w, combine, quantize)
+    want = k1_gather_weighted_plain(x, slot_src, w, combine, quantize)
+    torch.cuda.synchronize()
+    assert got.dtype == (torch.int32 if quantize else torch.float32)
+    assert _bits_equal(got, want)
+    assert LAUNCHES["k1_gather_weighted"] == before + 1
+
+
+@pytest.mark.requires_cuda
+@pytest.mark.parametrize("op", ["imin", "min"])
+def test_k2_reduce_min_matches_plain_on_card(cuda_device, op):
+    """Empty rows (the fill), a 300,001-slot hub row, negative int32 for
+    imin, f32 zeros, denormals and 3e38 (and above) for min."""
+    _, _, contrib, indptr = _cases(seed=21)
+    if op == "min":  # nonnegative f32 bit patterns
+        contrib = contrib & np.int32(0x7FFFFFFF)
+        contrib[::97] = 0
+        contrib[1::97] = np.arange(contrib[1::97].size) % 0x7FFFFF + 1
+        contrib[2::97] = INF_BITS
+        contrib[3::97] = np.float32(np.finfo(np.float32).max).view(np.int32)
+    else:
+        assert (contrib < 0).any()
+    contrib, indptr = (torch.from_numpy(a).to(cuda_device)
+                       for a in (contrib, indptr))
+    before = LAUNCHES["k2_reduce_min"]
+    got = k2_reduce_min(contrib, indptr, op)
+    want = k2_reduce_min_plain(contrib, indptr, op)
+    torch.cuda.synchronize()
+    assert torch.equal(got, want)
+    assert LAUNCHES["k2_reduce_min"] == before + 1
+    empty = torch.diff(indptr) == 0
+    assert bool(empty.any())
+    assert bool((got[empty] == (INF_BITS if op == "min" else 2**31 - 1)).all())
+
+
+@pytest.mark.requires_cuda
+def test_new_wrappers_reject_what_the_kernels_do_not_take(cuda_device):
+    xq, slot_src, contrib, indptr = (
+        torch.from_numpy(a).to(cuda_device) for a in _cases(seed=3))
+    x = xq.float()
+    w = torch.ones(slot_src.numel(), device=cuda_device)
+    with pytest.raises(TypeError):
+        k1_gather_weighted(xq, slot_src, w, "add", True)
+    with pytest.raises(ValueError):
+        k1_gather_weighted(x, slot_src, w[:-1], "add", True)
+    with pytest.raises(ValueError):
+        k1_gather_weighted(x, slot_src, w.cpu(), "mul", False)
+    with pytest.raises(ValueError):
+        k1_gather_weighted(x, slot_src[::2], w[::2], "mul", False)
+    with pytest.raises(ValueError):
+        k1_gather_weighted(x, slot_src, w, "max", False)
+    with pytest.raises(TypeError):
+        k2_reduce_min(contrib.float(), indptr, "min")
+    with pytest.raises(ValueError):
+        k2_reduce_min(contrib, indptr.cpu(), "imin")
+    with pytest.raises(ValueError):
+        k2_reduce_min(contrib, indptr, "max")
+
+
+@pytest.mark.requires_cuda
+def test_engine_ops_on_card_equal_cpu(cuda_device):
+    """Every engine op on the card equals the port's CPU path bit for bit."""
+    g = np.random.default_rng(8)
+    n, m = 5000, 60000
+    src = (g.zipf(1.3, m) % n).astype(np.int64)
+    dst = g.integers(0, n, m)
+    w = (g.random(m) * 1e-3).astype(np.float32)
+    x = (g.random(n) * 1e-3).astype(np.float32)
+    xi = g.integers(0, 1 << 30, n).astype(np.int32)
+    engines = [EdgeEngine.build(src, dst, n, values=w, relabel="degree",
+                                device=d) for d in ("cpu", cuda_device)]
+    outs = []
+    for eng in engines:
+        xd = torch.from_numpy(x).to(eng.device)
+        outs.append([eng.apply(xd, combine=c, reduce=r)
+                     for c in ("none", "add", "mul") for r in ("sum", "min")]
+                    + [eng.smin_int(torch.from_numpy(xi).to(eng.device))])
+    torch.cuda.synchronize()
+    for a, b in zip(*outs):
+        assert _bits_equal(a, b.cpu())
