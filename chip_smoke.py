@@ -24,8 +24,12 @@ m = 67,108,864, seed 42):
 
 Each path runs with the launch counts set to 0 just before and read just
 after, and fails unless each of its kernels launched at least once per
-iteration.  It prints one JSON line per phase; the line before the last
-lists the kernels, and the last line is ``{"ok": true, "device": {...}}``.
+iteration.  A window probe then times K1 at the PageRank and SSSP shapes
+with several shared-memory windows (0 among them) in this one process.
+It prints one JSON line per phase; the line before the last lists the
+kernels, with each design's facts (K2's tile, K1's window and the share
+of slots it serves), and the last line is ``{"ok": true, "device":
+{...}}``.
 Any failed check exits non-zero without that line, as does a machine
 without a CUDA device.
 """
@@ -50,6 +54,8 @@ SCALAR_OPS_PER_S = 67e12
 #: bench.py's traffic model of one pull iteration: 4 B source id + 4 B
 #: gathered score + amortized index and score writes, per edge.
 BYTES_PER_EDGE = 12.0
+#: K1 windows the probe times (sources kept in shared memory per block).
+PROBE_WINDOWS = (0, 16384, 32768, 40960, 49152, 58112)
 #: The kernels each path must launch at least once per iteration.
 PATH_KERNELS = {"pagerank": ("k1_gather", "k2_reduce"),
                 "wcc": ("k1_gather", "k2_reduce_min"),
@@ -136,9 +142,10 @@ def hold(errs, name, got, want):
 
 
 def edge_cases(dev, seed):
-    """Inputs with empty rows, a 300,001-slot hub row, sums that wrap
-    int32, negative int32 (for imin), and m not a multiple of the block
-    size; f32 inputs for the weighted gather and the f32 min."""
+    """Inputs with empty rows, a 300,001-slot hub row (over 150 K2 tiles),
+    sums that wrap int32, negative int32 (for imin), and m not a multiple
+    of 4; f32 inputs for the weighted gather and the f32 min; and copies
+    one element into their storage, so not 16-byte aligned."""
     import torch
 
     g = np.random.default_rng(seed)
@@ -170,27 +177,39 @@ def edge_cases(dev, seed):
         "wf": (g.random(m) * 4).astype(np.float32), "xs": xs, "ws": ws,
         "ws_add": np.where(ws == 1.0, np.float32(0.0), ws * 0.5),
     }
-    return {k: torch.from_numpy(a).to(dev) for k, a in arrays.items()}
+    out = {k: torch.from_numpy(a).to(dev) for k, a in arrays.items()}
+    for name in ("slot_src", "contrib", "fbits", "wf", "xq"):
+        t = out[name]
+        out[name + "_off1"] = torch.cat([t[:1], t])[1:]  # storage offset 1
+    return out
 
 
 def check_edge_cases(kernels, a, errs):
-    """Every kernel against its plain version on the edge-case inputs."""
+    """Every kernel against its plain version on the edge-case inputs,
+    with K1 windows of none, part of and more than the 4,096 sources."""
     k = kernels
-    hold(errs, "k1_gather", k.k1_gather(a["xq"], a["slot_src"]),
-         k.k1_gather_plain(a["xq"], a["slot_src"]))
-    hold(errs, "k2_reduce", k.k2_reduce(a["contrib"], a["indptr"]),
-         k.k2_reduce_plain(a["contrib"], a["indptr"]))
-    for op, c in (("imin", a["contrib"]), ("min", a["fbits"])):
-        hold(errs, "k2_reduce_min", k.k2_reduce_min(c, a["indptr"], op),
-             k.k2_reduce_min_plain(c, a["indptr"], op))
+    for off in ("", "_off1"):
+        xq, src = a["xq" + off], a["slot_src" + off]
+        for h in (0, 1024, 8192):
+            hold(errs, "k1_gather", k.k1_gather(xq, src, h),
+                 k.k1_gather_plain(xq, src))
+        c, ip = a["contrib" + off], a["indptr"]
+        hold(errs, "k2_reduce", k.k2_reduce(c, ip), k.k2_reduce_plain(c, ip))
+        for op, c in (("imin", c), ("min", a["fbits" + off])):
+            hold(errs, "k2_reduce_min", k.k2_reduce_min(c, ip, op),
+                 k.k2_reduce_min_plain(c, ip, op))
     cases = [(a["xf"], a["wf"], "add", False), (a["xf"], a["wf"], "mul", False),
              (a["xs"], a["ws"], "mul", True),
-             (a["xs"], a["ws_add"], "add", True)]
-    for x, w, combine, quantize in cases:
-        hold(errs, "k1_gather_weighted",
-             k.k1_gather_weighted(x, a["slot_src"], w, combine, quantize),
-             k.k1_gather_weighted_plain(x, a["slot_src"], w, combine,
-                                        quantize))
+             (a["xs"], a["ws_add"], "add", True),
+             (a["xf"], a["wf_off1"], "add", False)]
+    for src in (a["slot_src"], a["slot_src_off1"]):
+        for x, w, combine, quantize in cases:
+            for h in (0, 1024, 8192):
+                hold(errs, "k1_gather_weighted",
+                     k.k1_gather_weighted(x, src, w, combine, quantize,
+                                          window=h),
+                     k.k1_gather_weighted_plain(x, src, w, combine,
+                                                quantize))
 
 
 def host_jacobi(src, dst, n, iters, damping):
@@ -422,9 +441,10 @@ def bound_of(nbytes, nops):
 
 
 def row(name, path, source, replaces, launches, errs, run, plain,
-        library, nbytes, nops, shapes):
+        library, nbytes, nops, shapes, design):
     """One line of the kernel table; ``library`` is (what, call) or a
-    string saying why there is no such call."""
+    string saying why there is no such call; ``design`` holds the
+    design's facts (K2's tile, K1's window and the share it serves)."""
     bound, by = bound_of(nbytes, nops)
     lib_name, lib_call = (library, None) if isinstance(library, str) \
         else library
@@ -434,7 +454,44 @@ def row(name, path, source, replaces, launches, errs, run, plain,
             "max_abs_err": errs[name], "ms": time_ms(run),
             "plain_ms": time_ms(plain), "bound_ms": bound, "bound_by": by,
             "library_ms": None if lib_call is None else time_ms(lib_call),
-            "library": lib_name, "bytes": nbytes, "shapes": shapes}
+            "library": lib_name, "bytes": nbytes, "shapes": shapes,
+            **design}
+
+
+def k1_design(window, slot_src):
+    """K1's window and the share of slots it serves (from the plan)."""
+    return {"window": window,
+            "window_share": float((slot_src < window).double().mean())}
+
+
+def k2_design(kernels, cuts):
+    return {"tile_items": kernels.K2_TILE, "tiles": cuts.numel() - 1}
+
+
+def window_probe(kernels, plan, xq, wplan, dist):
+    """K1 at the PageRank shapes (4-byte) and the SSSP shapes (weighted
+    add) with each of PROBE_WINDOWS, in this one process; every output
+    held to the plain version first."""
+    k = kernels
+    want = k.k1_gather_plain(xq, plan.slot_src)
+    want_w = k.k1_gather_weighted_plain(dist, wplan.slot_src, wplan.slot_w,
+                                        "add", False)
+    out = {"pagerank": {}, "sssp": {}}
+    for h in PROBE_WINDOWS:
+        check(bits_diff(k.k1_gather(xq, plan.slot_src, h), want) == 0,
+              f"k1_gather with window {h} disagrees with its plain version")
+        check(bits_diff(k.k1_gather_weighted(dist, wplan.slot_src,
+                                             wplan.slot_w, "add", False,
+                                             window=h), want_w) == 0,
+              f"k1_gather_weighted with window {h} disagrees")
+        out["pagerank"][h] = {
+            "ms": time_ms(lambda: k.k1_gather(xq, plan.slot_src, h)),
+            **k1_design(h, plan.slot_src)}
+        out["sssp"][h] = {
+            "ms": time_ms(lambda: k.k1_gather_weighted(
+                dist, wplan.slot_src, wplan.slot_w, "add", False, window=h)),
+            **k1_design(h, wplan.slot_src)}
+    return out
 
 
 def run():
@@ -522,11 +579,11 @@ def run():
 
     # 5. each kernel at its path's shapes: exactness, then times
     table = []
-    plan = eng.plan
+    plan, h, cuts = eng.plan, eng.window, eng.k2_cuts
     xq = torch.round(eng.to_internal(x_t) * float(1 << 30)).to(torch.int32)
     contrib = k.k1_gather_plain(xq, plan.slot_src)
-    hold(errs, "k1_gather", k.k1_gather(xq, plan.slot_src), contrib)
-    hold(errs, "k2_reduce", k.k2_reduce(contrib, plan.indptr),
+    hold(errs, "k1_gather", k.k1_gather(xq, plan.slot_src, h), contrib)
+    hold(errs, "k2_reduce", k.k2_reduce(contrib, plan.indptr, cuts),
          k.k2_reduce_plain(contrib, plan.indptr))
     rows = torch.repeat_interleave(
         torch.arange(n, device=dev), torch.diff(plan.indptr))
@@ -538,26 +595,27 @@ def run():
     table.append(row(
         "k1_gather", "pagerank", "k1_gather.cu",
         "graph_tpu/engine/kernels.py:253", pr_launches, errs,
-        lambda: k.k1_gather(xq, plan.slot_src),
+        lambda: k.k1_gather(xq, plan.slot_src, h),
         lambda: k.k1_gather_plain(xq, plan.slot_src),
         ("index_select", lambda: torch.index_select(xq, 0, plan.slot_src)),
-        8 * m + 4 * n, 0, pr_shapes))
+        8 * m + 4 * n, 0, pr_shapes, k1_design(h, plan.slot_src)))
     table.append(row(
         "k2_reduce", "pagerank", "k2_reduce.cu",
         "graph_tpu/engine/kernels.py:603", pr_launches, errs,
-        lambda: k.k2_reduce(contrib, plan.indptr),
+        lambda: k.k2_reduce(contrib, plan.indptr, cuts),
         lambda: k.k2_reduce_plain(contrib, plan.indptr),
         ("index_add_", lambda: torch.zeros(
             n, dtype=torch.int32, device=dev).index_add_(0, rows, contrib)),
-        4 * m + 8 * (n + 1) + 4 * n, m, pr_shapes))
-    del rows, contrib, xq
+        4 * m + 8 * (n + 1) + 4 * n, m, pr_shapes, k2_design(k, cuts)))
+    del rows, contrib
 
     # WCC shapes: the first round's hook, labels = node ids
-    sp_ = sym.plan
+    sp_, sh, scuts = sym.plan, sym.window, sym.k2_cuts
     labels = torch.arange(n, dtype=torch.int32, device=dev)
     c_sym = k.k1_gather_plain(labels, sp_.slot_src)
-    hold(errs, "k1_gather", k.k1_gather(labels, sp_.slot_src), c_sym)
-    hold(errs, "k2_reduce_min", k.k2_reduce_min(c_sym, sp_.indptr, "imin"),
+    hold(errs, "k1_gather", k.k1_gather(labels, sp_.slot_src, sh), c_sym)
+    hold(errs, "k2_reduce_min",
+         k.k2_reduce_min(c_sym, sp_.indptr, "imin", scuts),
          k.k2_reduce_min_plain(c_sym, sp_.indptr, "imin"))
     rows = torch.repeat_interleave(
         torch.arange(n, device=dev), torch.diff(sp_.indptr))
@@ -566,32 +624,35 @@ def run():
     table.append(row(
         "k1_gather", "wcc", "k1_gather.cu",
         "graph_tpu/engine/kernels.py:253", wcc_launches, errs,
-        lambda: k.k1_gather(labels, sp_.slot_src),
+        lambda: k.k1_gather(labels, sp_.slot_src, sh),
         lambda: k.k1_gather_plain(labels, sp_.slot_src),
         ("index_select",
          lambda: torch.index_select(labels, 0, sp_.slot_src)),
-        8 * ms_ + 4 * n, 0, wcc_shapes))
+        8 * ms_ + 4 * n, 0, wcc_shapes, k1_design(sh, sp_.slot_src)))
     table.append(row(
         "k2_reduce_min", "wcc (op=imin)", "k2_reduce.cu",
         "graph_tpu/engine/kernels.py:603", wcc_launches, errs,
-        lambda: k.k2_reduce_min(c_sym, sp_.indptr, "imin"),
+        lambda: k.k2_reduce_min(c_sym, sp_.indptr, "imin", scuts),
         lambda: k.k2_reduce_min_plain(c_sym, sp_.indptr, "imin"),
         ("scatter_reduce_ amin", lambda: torch.full(
             (n,), k.IMAX, dtype=torch.int32, device=dev).scatter_reduce_(
                 0, rows, c_sym, "amin")),
-        4 * ms_ + 8 * (n + 1) + 4 * n, ms_, wcc_shapes))
+        4 * ms_ + 8 * (n + 1) + 4 * n, ms_, wcc_shapes,
+        k2_design(k, scuts)))
     del rows, c_sym, labels
 
     # SSSP shapes: a relax of the final distances (internal order)
-    wp = weng.plan
+    wp, wh, wcuts = weng.plan, weng.window, weng.k2_cuts
     dist = weng.to_internal(sssp_res.distances).clamp(max=k.INF)
     c_w = k.k1_gather_weighted_plain(dist, wp.slot_src, wp.slot_w, "add",
                                      False)
     hold(errs, "k1_gather_weighted",
-         k.k1_gather_weighted(dist, wp.slot_src, wp.slot_w, "add", False),
+         k.k1_gather_weighted(dist, wp.slot_src, wp.slot_w, "add", False,
+                              window=wh),
          c_w)
     c_bits = c_w.view(torch.int32)
-    hold(errs, "k2_reduce_min", k.k2_reduce_min(c_bits, wp.indptr, "min"),
+    hold(errs, "k2_reduce_min",
+         k.k2_reduce_min(c_bits, wp.indptr, "min", wcuts),
          k.k2_reduce_min_plain(c_bits, wp.indptr, "min"))
     rows = torch.repeat_interleave(
         torch.arange(n, device=dev), torch.diff(wp.indptr))
@@ -600,20 +661,23 @@ def run():
         "k1_gather_weighted", "sssp (combine=add)", "k1_gather.cu",
         "graph_tpu/engine/kernels.py:253", sssp_launches, errs,
         lambda: k.k1_gather_weighted(dist, wp.slot_src, wp.slot_w, "add",
-                                     False),
+                                     False, window=wh),
         lambda: k.k1_gather_weighted_plain(dist, wp.slot_src, wp.slot_w,
                                            "add", False),
         "none: no single PyTorch call gathers and adds",
-        12 * m + 4 * n, m, sssp_shapes))
+        12 * m + 4 * n, m, sssp_shapes, k1_design(wh, wp.slot_src)))
     table.append(row(
         "k2_reduce_min", "sssp (op=min)", "k2_reduce.cu",
         "graph_tpu/engine/kernels.py:603", sssp_launches, errs,
-        lambda: k.k2_reduce_min(c_bits, wp.indptr, "min"),
+        lambda: k.k2_reduce_min(c_bits, wp.indptr, "min", wcuts),
         lambda: k.k2_reduce_min_plain(c_bits, wp.indptr, "min"),
         ("scatter_reduce_ amin", lambda: torch.full(
             (n,), k.INF_BITS, dtype=torch.int32, device=dev).scatter_reduce_(
                 0, rows, c_bits, "amin")),
-        4 * m + 8 * (n + 1) + 4 * n, m, sssp_shapes))
+        4 * m + 8 * (n + 1) + 4 * n, m, sssp_shapes, k2_design(k, wcuts)))
+    emit({"phase": "window_probe", "card": card,
+          **window_probe(k, plan, xq, wp, dist)})
+    del xq
     for t in table:  # the exactness of every kernel, edge cases included
         t["max_abs_err"] = errs[t["name"]]
 

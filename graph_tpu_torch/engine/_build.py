@@ -29,13 +29,13 @@ NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
 _P = ctypes.c_void_p
 _I64 = ctypes.c_longlong
 _I32 = ctypes.c_int
-#: The C entry point of each kernel: (pointers..., count, [options],
+#: The C entry point of each kernel: (pointers..., counts, [options],
 #: stream) -> cudaError.
 SIGNATURES = {
-    "k1_gather": (_P, _P, _P, _I64, _P),
-    "k1_gather_weighted": (_P, _P, _P, _P, _I64, _I32, _I32, _P),
-    "k2_reduce": (_P, _P, _P, _I64, _P),
-    "k2_reduce_min": (_P, _P, _P, _I64, _I32, _P),
+    "k1_gather": (_P, _P, _P, _I64, _I32, _P),
+    "k1_gather_weighted": (_P, _P, _P, _P, _I64, _I32, _I32, _I32, _P),
+    "k2_reduce": (_P, _P, _P, _P, _P, _I64, _I64, _I64, _P),
+    "k2_reduce_min": (_P, _P, _P, _P, _P, _I64, _I64, _I64, _I32, _P),
 }
 #: The source (``csrc/<source>.cu``) that defines each entry point.
 SOURCES = {

@@ -15,6 +15,11 @@ JAX engine, so the two agree bit for bit:
 
 On a GPU a node permutation is an index gather, so the JAX engine's
 sort-based and gather-plan permutes become ``x[iperm]`` and ``y[perm]``.
+
+Per plan, the engine fixes what shapes the kernels' work: K2's tile cuts,
+computed once, and K1's shared-memory window, ``K1_WINDOW`` sources for a
+degree-relabeled plan (its hottest sources have the lowest ids) and 0
+for a plan on node ids.
 """
 
 from __future__ import annotations
@@ -25,7 +30,8 @@ import numpy as np
 import torch
 
 from graph_tpu_torch.engine.kernels import (
-    FIXED_BITS, k1_gather, k1_gather_weighted, k2_reduce, k2_reduce_min)
+    FIXED_BITS, K1_WINDOW, k1_gather, k1_gather_weighted, k2_reduce,
+    k2_reduce_min, k2_tile_cuts)
 from graph_tpu_torch.engine.plan import EdgePlan, load_or_build_plan
 
 
@@ -50,10 +56,13 @@ class EdgeEngine:
         self.plan = plan
         self.device = plan.device
         self.perm = self.iperm = None
+        self.window = 0
         if plan.perm is not None:
             self.perm = plan.perm.long()
             self.iperm = torch.empty_like(self.perm)
             self.iperm[self.perm] = torch.arange(plan.n, device=self.device)
+            self.window = K1_WINDOW
+        self.k2_cuts = k2_tile_cuts(plan.indptr, plan.m)
 
     @classmethod
     def build(cls, src, dst, n, *, values=None, relabel=None, cache_dir=None,
@@ -125,25 +134,26 @@ class EdgeEngine:
         self._check_x(x, torch.float32)
         if not internal:
             x = self.to_internal(x)
-        p = self.plan
+        p, h = self.plan, self.window
         if reduce == "sum":
             if combine == "none":
                 # round(x * 2**30) commutes with the gather: quantize at n
                 xq = torch.round(x * float(1 << FIXED_BITS)).to(torch.int32)
-                contrib = k1_gather(xq, p.slot_src)
+                contrib = k1_gather(xq, p.slot_src, h)
             else:  # quantized per slot, after the f32 combine
                 contrib = k1_gather_weighted(x, p.slot_src, p.slot_w,
-                                             combine, quantize=True)
-            y = k2_reduce(contrib, p.indptr).to(torch.float32) / float(
-                1 << FIXED_BITS)
+                                             combine, quantize=True, window=h)
+            y = k2_reduce(contrib, p.indptr, self.k2_cuts).to(
+                torch.float32) / float(1 << FIXED_BITS)
         else:
             if combine == "none":  # a 4-byte gather of the f32 bits
-                contrib = k1_gather(x.view(torch.int32), p.slot_src)
+                contrib = k1_gather(x.view(torch.int32), p.slot_src, h)
             else:
                 contrib = k1_gather_weighted(
-                    x, p.slot_src, p.slot_w, combine,
-                    quantize=False).view(torch.int32)
-            y = k2_reduce_min(contrib, p.indptr, "min").view(torch.float32)
+                    x, p.slot_src, p.slot_w, combine, quantize=False,
+                    window=h).view(torch.int32)
+            y = k2_reduce_min(contrib, p.indptr, "min",
+                              self.k2_cuts).view(torch.float32)
         return y if internal else self.to_public(y)
 
     def relax(self, dist: torch.Tensor,
@@ -170,8 +180,8 @@ class EdgeEngine:
         self._check_x(x, torch.int32)
         if not internal:
             x = self.to_internal(x)
-        y = k2_reduce_min(k1_gather(x, self.plan.slot_src), self.plan.indptr,
-                          "imin")
+        y = k2_reduce_min(k1_gather(x, self.plan.slot_src, self.window),
+                          self.plan.indptr, "imin", self.k2_cuts)
         return y if internal else self.to_public(y)
 
 

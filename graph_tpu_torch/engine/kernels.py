@@ -15,6 +15,13 @@ stores slots sorted by destination with row offsets, so:
   fill (``IMAX`` for ``op="imin"``, ``INF_BITS`` for ``op="min"`` over
   f32 bit patterns); empty rows give the fill.
 
+Two arguments shape the kernels' work and never their results.  K1's
+``window`` is how many of the first sources each block keeps in shared
+memory (the hottest ones, on a degree-relabeled plan).  K2's ``cuts``
+(:func:`k2_tile_cuts`) cut the merged sequence of row ends and slots into
+tiles of equal size; a caller that reduces over one ``indptr`` many times
+computes them once and passes them in.
+
 Sums are int32 fixed point, ``round(x * 2**FIXED_BITS)``; integer
 addition and min do not depend on order, so every reduction order gives
 the same bits as the JAX package.
@@ -28,6 +35,8 @@ on the card.  ``LAUNCHES`` counts the kernel launches.
 
 from __future__ import annotations
 
+from typing import Optional
+
 import torch
 
 from graph_tpu_torch.engine import _build
@@ -38,6 +47,16 @@ INF_BITS = 2137108966  # float32(INF) viewed as int32
 IMAX = 2147483647  # int32 max: the "+inf" of the integer-min path
 #: The fill of each K2 min op: the value of an empty row.
 MIN_FILL = {"imin": IMAX, "min": INF_BITS}
+
+#: Largest K1 window: 232,448 bytes of shared memory per block, 4 per source.
+K1_WINDOW_MAX = 232_448 // 4
+#: The K1 window the engine gives degree-relabeled plans: the first 49,152
+#: internal ids (192 KB), the sources of about 60% of the slots at RMAT
+#: scale 22; the fastest of the windows chip_smoke's probe times (PERF.md).
+K1_WINDOW = 49_152
+#: Merged items (row ends and slots) per K2 tile: 128 threads x 15, the
+#: ``kTile`` of ``csrc/k2_reduce.cu``.
+K2_TILE = 1920
 
 #: Kernel launches since the last :func:`reset_launches`.  A wrapper adds
 #: one where it launches its kernel, and nowhere else.
@@ -111,13 +130,25 @@ def _launch(name: str, device: torch.device, *args) -> None:
         raise RuntimeError(f"{name}: kernel launch failed with CUDA error {err}")
 
 
-def k1_gather(xq: torch.Tensor, slot_src: torch.Tensor) -> torch.Tensor:
+def _window(window: int, n_src: int) -> int:
+    """The K1 window actually staged: ``window`` capped at the sources."""
+    if not 0 <= window <= K1_WINDOW_MAX:
+        raise ValueError(f"window must lie in [0, {K1_WINDOW_MAX}], "
+                         f"got {window}")
+    return min(int(window), n_src)
+
+
+def k1_gather(xq: torch.Tensor, slot_src: torch.Tensor,
+              window: int = 0) -> torch.Tensor:
     """Per-slot gather: ``out[i] = xq[slot_src[i]]``.
 
     xq: (n_src,) int32 (quanta, labels, or f32 values viewed as int32);
     slot_src: (m,) int32 indices into xq, as a plan stores them (the plan
-    checks their range when it is built).  Returns (m,) int32.
+    checks their range when it is built).  ``window``: the kernel serves
+    sources below it from shared memory (at most ``K1_WINDOW_MAX``; 0
+    turns it off).  Returns (m,) int32.
     """
+    h = _window(window, xq.numel())
     if _on_cpu(xq, slot_src):
         return k1_gather_plain(xq, slot_src)
     _check("xq", xq, torch.int32, xq.device)
@@ -125,24 +156,25 @@ def k1_gather(xq: torch.Tensor, slot_src: torch.Tensor) -> torch.Tensor:
     out = torch.empty_like(slot_src)
     if out.numel():
         _launch("k1_gather", xq.device, xq.data_ptr(), slot_src.data_ptr(),
-                out.data_ptr(), out.numel())
+                out.data_ptr(), out.numel(), h)
     return out
 
 
 def k1_gather_weighted(x: torch.Tensor, slot_src: torch.Tensor,
                        w: torch.Tensor, combine: str,
-                       quantize: bool) -> torch.Tensor:
+                       quantize: bool, window: int = 0) -> torch.Tensor:
     """Per-slot gather with an edge weight, in f32:
     ``v[i] = x[slot_src[i]] + w[i]`` (``combine="add"``) or ``* w[i]``
     (``"mul"``).
 
-    x: (n_src,) f32; slot_src: (m,) int32; w: (m,) f32.  Returns (m,) f32
-    ``v``, or with ``quantize`` the (m,) int32 quanta
-    ``round_half_even(v * 2**FIXED_BITS)`` that :func:`k2_reduce` sums
-    (|v| must stay below 2**(31-FIXED_BITS)).
+    x: (n_src,) f32; slot_src: (m,) int32; w: (m,) f32; ``window`` as for
+    :func:`k1_gather`.  Returns (m,) f32 ``v``, or with ``quantize`` the
+    (m,) int32 quanta ``round_half_even(v * 2**FIXED_BITS)`` that
+    :func:`k2_reduce` sums (|v| must stay below 2**(31-FIXED_BITS)).
     """
     if combine not in ("add", "mul"):
         raise ValueError(f"combine must be add|mul, got {combine!r}")
+    h = _window(window, x.numel())
     if _on_cpu(x, slot_src, w):
         return k1_gather_weighted_plain(x, slot_src, w, combine, quantize)
     _check("x", x, torch.float32, x.device)
@@ -156,8 +188,34 @@ def k1_gather_weighted(x: torch.Tensor, slot_src: torch.Tensor,
     if out.numel():
         _launch("k1_gather_weighted", x.device, x.data_ptr(),
                 slot_src.data_ptr(), w.data_ptr(), out.data_ptr(),
-                out.numel(), int(combine == "mul"), int(bool(quantize)))
+                out.numel(), h, int(combine == "mul"), int(bool(quantize)))
     return out
+
+
+def k2_num_tiles(n: int, m: int) -> int:
+    """K2's tile count for n rows and m slots: enough tiles of at most
+    ``K2_TILE`` merged items, and at least one."""
+    return max(1, -(-(n + m) // K2_TILE))
+
+
+def k2_tile_cuts(indptr: torch.Tensor, m: int) -> torch.Tensor:
+    """Where each K2 tile starts, on the merge path of row ends and slots.
+
+    The merged sequence lists each row's slots, then its end: row d's end
+    is item ``indptr[d+1] + d`` of ``n + m``.  Tile t of T =
+    :func:`k2_num_tiles` covers items ``[D(t), D(t+1))`` with
+    ``D(t) = t * (n + m) // T``, so tiles differ by at most one item.
+    Returns (T+1,) int64 ``cuts``: ``cuts[t]`` rows end before ``D(t)``,
+    and the tile's first slot is ``D(t) - cuts[t]``.  indptr: (n+1,)
+    int64 from 0 to m.
+    """
+    n = indptr.numel() - 1
+    ntiles = k2_num_tiles(n, m)
+    diag = torch.arange(ntiles + 1, dtype=torch.int64,
+                        device=indptr.device) * (n + m) // ntiles
+    ends = indptr[1:] + torch.arange(n, dtype=torch.int64,
+                                     device=indptr.device)
+    return torch.searchsorted(ends, diag)
 
 
 def _reduce_out(contrib: torch.Tensor, indptr: torch.Tensor) -> torch.Tensor:
@@ -169,30 +227,47 @@ def _reduce_out(contrib: torch.Tensor, indptr: torch.Tensor) -> torch.Tensor:
                        device=contrib.device)
 
 
-def k2_reduce(contrib: torch.Tensor, indptr: torch.Tensor) -> torch.Tensor:
+def _launch_k2(name: str, contrib: torch.Tensor, indptr: torch.Tensor,
+               cuts, out: torch.Tensor, *options) -> None:
+    n, m = out.numel(), contrib.numel()
+    if cuts is None:
+        cuts = k2_tile_cuts(indptr, m)
+    _check("cuts", cuts, torch.int64, contrib.device)
+    ntiles = cuts.numel() - 1
+    if ntiles != k2_num_tiles(n, m):
+        raise ValueError(f"cuts has {ntiles} tiles, n={n} and m={m} take "
+                         f"{k2_num_tiles(n, m)}")
+    carries = torch.empty(ntiles, dtype=torch.int32, device=contrib.device)
+    _launch(name, contrib.device, contrib.data_ptr(), indptr.data_ptr(),
+            cuts.data_ptr(), carries.data_ptr(), out.data_ptr(), n, m,
+            ntiles, *options)
+
+
+def k2_reduce(contrib: torch.Tensor, indptr: torch.Tensor,
+              cuts: Optional[torch.Tensor] = None) -> torch.Tensor:
     """Per-row wraparound sum: ``y[d] = sum(contrib[indptr[d]:indptr[d+1]])``.
 
     contrib: (m,) int32; indptr: (n+1,) int64, nondecreasing, from 0 to
-    m.  Returns (n,) int32 (the sum mod 2**32 as two's complement).
+    m; ``cuts``: ``k2_tile_cuts(indptr, m)``, computed here when not
+    given.  Returns (n,) int32 (the sum mod 2**32 as two's complement).
     """
     if _on_cpu(contrib, indptr):
         return k2_reduce_plain(contrib, indptr)
     out = _reduce_out(contrib, indptr)
     if out.numel():
-        _launch("k2_reduce", contrib.device, contrib.data_ptr(),
-                indptr.data_ptr(), out.data_ptr(), out.numel())
+        _launch_k2("k2_reduce", contrib, indptr, cuts, out)
     return out
 
 
-def k2_reduce_min(contrib: torch.Tensor, indptr: torch.Tensor,
-                  op: str) -> torch.Tensor:
+def k2_reduce_min(contrib: torch.Tensor, indptr: torch.Tensor, op: str,
+                  cuts: Optional[torch.Tensor] = None) -> torch.Tensor:
     """Per-row int32 min: ``y[d] = min(fill, contrib[indptr[d]:indptr[d+1]])``.
 
     ``op="imin"``: int32 values, fill ``IMAX``.  ``op="min"``: f32 values
     viewed as int32, fill ``INF_BITS``; the values must be nonnegative, so
     that integer order of the bits is IEEE order.  contrib: (m,) int32;
-    indptr as for :func:`k2_reduce`.  Returns (n,) int32; empty rows hold
-    the fill.
+    indptr and cuts as for :func:`k2_reduce`.  Returns (n,) int32; empty
+    rows hold the fill.
     """
     if op not in MIN_FILL:
         raise ValueError(f"op must be min|imin, got {op!r}")
@@ -200,7 +275,5 @@ def k2_reduce_min(contrib: torch.Tensor, indptr: torch.Tensor,
         return k2_reduce_min_plain(contrib, indptr, op)
     out = _reduce_out(contrib, indptr)
     if out.numel():
-        _launch("k2_reduce_min", contrib.device, contrib.data_ptr(),
-                indptr.data_ptr(), out.data_ptr(), out.numel(),
-                MIN_FILL[op])
+        _launch_k2("k2_reduce_min", contrib, indptr, cuts, out, MIN_FILL[op])
     return out

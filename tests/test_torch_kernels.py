@@ -13,9 +13,10 @@ import torch
 
 from graph_tpu_torch.engine import EdgeEngine
 from graph_tpu_torch.engine.kernels import (
-    INF_BITS, LAUNCHES, k1_gather, k1_gather_plain, k1_gather_weighted,
-    k1_gather_weighted_plain, k2_reduce, k2_reduce_min, k2_reduce_min_plain,
-    k2_reduce_plain)
+    INF_BITS, K1_WINDOW, LAUNCHES, k1_gather, k1_gather_plain,
+    k1_gather_weighted, k1_gather_weighted_plain, k2_reduce, k2_reduce_min,
+    k2_reduce_min_plain, k2_reduce_plain, k2_tile_cuts)
+from test_torch_tiles import TILE_CASES, _values, indptr_of
 
 
 @pytest.fixture
@@ -187,3 +188,101 @@ def test_engine_ops_on_card_equal_cpu(cuda_device):
     torch.cuda.synchronize()
     for a, b in zip(*outs):
         assert _bits_equal(a, b.cpu())
+
+
+# The redesigned kernels' edges: K2's merge-path tiles and K1's window and
+# 16-byte streams, each against its plain version bit for bit.
+
+def _k2_pair(op):
+    """(kernel, plain, launch-count name) of one K2 op."""
+    if op == "sum":
+        return k2_reduce, k2_reduce_plain, "k2_reduce"
+    return ((lambda c, ip, cuts=None: k2_reduce_min(c, ip, op, cuts)),
+            (lambda c, ip: k2_reduce_min_plain(c, ip, op)), "k2_reduce_min")
+
+
+@pytest.mark.requires_cuda
+@pytest.mark.parametrize("offset", [0, 1, 2, 3])
+@pytest.mark.parametrize("op", ["sum", "imin", "min"])
+@pytest.mark.parametrize("case", list(TILE_CASES))
+def test_k2_merge_path_edges_on_card(cuda_device, case, op, offset):
+    """A row ending on a tile boundary, a row over 4 tiles among empty
+    rows, n = 1, m below one tile, a power-law plan; values that wrap
+    int32 sums and negative imin values; contrib at storage offsets 1-3
+    (not 16-byte aligned).  One launch per call, cuts given or not."""
+    indptr = indptr_of(TILE_CASES[case]())
+    m = int(indptr[-1])
+    base = torch.from_numpy(_values(m + offset, op, seed=offset)).to(
+        cuda_device)
+    contrib = base[offset:]
+    assert contrib.storage_offset() == offset and contrib.is_contiguous()
+    ip = torch.from_numpy(indptr).to(cuda_device)
+    kernel, plain, name = _k2_pair(op)
+    want = plain(contrib, ip)
+    before = LAUNCHES[name]
+    got = kernel(contrib, ip)
+    got_cuts = kernel(contrib, ip, k2_tile_cuts(ip, m))
+    torch.cuda.synchronize()
+    assert torch.equal(got, want) and torch.equal(got_cuts, want)
+    assert LAUNCHES[name] == before + 2
+
+
+def _k1_call(form, x, src, w, window):
+    """(kernel output, plain output) of one K1 form."""
+    if form == "gather":
+        xi = x.view(torch.int32)
+        return k1_gather(xi, src, window), k1_gather_plain(xi, src)
+    combine, quantize = form.split("_")[0], form.endswith("_q")
+    return (k1_gather_weighted(x, src, w, combine, quantize, window=window),
+            k1_gather_weighted_plain(x, src, w, combine, quantize))
+
+
+def _view(a, offset, device):
+    """a as a contiguous view at storage offset ``offset``."""
+    base = torch.zeros(a.size + offset, dtype=torch.from_numpy(a).dtype)
+    base[offset:] = torch.from_numpy(a)
+    return base.to(device)[offset:]
+
+
+@pytest.mark.requires_cuda
+@pytest.mark.parametrize("window", [0, 1000, 4096, 10_000])
+@pytest.mark.parametrize("offset", [0, 1, 2, 3])
+@pytest.mark.parametrize("form", ["gather", "add", "mul", "add_q", "mul_q"])
+def test_k1_window_and_offsets_on_card(cuda_device, form, offset, window):
+    """Windows of 0, part of, all of and more than the 4,096 sources;
+    x, slot_src and w at storage offsets 1-3 (w's differs from slot_src's
+    but for 0 and 2); m = 50,003, not a multiple of 4.  Sources are skewed
+    to low ids, as on a relabeled plan, so both the window and the L2
+    serve gathers."""
+    g = np.random.default_rng(17 + offset)
+    quantize = form.endswith("_q")
+    x, wv = _weighted_cases(g, quantize)
+    m = 50_003
+    src = np.minimum(g.zipf(1.5, m) - 1, x.size - 1).astype(np.int32)
+    src[::7] = g.integers(0, x.size, src[::7].size)
+    w = g.choice(wv, m)
+    if quantize:
+        w[: m // 4] = 1.0 if form.startswith("mul") else 0.0  # keep ties
+    xd, srcd = _view(x, offset, cuda_device), _view(src, offset, cuda_device)
+    wd = _view(w, (3 * offset) % 4, cuda_device)
+    name = "k1_gather" if form == "gather" else "k1_gather_weighted"
+    before = LAUNCHES[name]
+    got, want = _k1_call(form, xd, srcd, wd, window)
+    torch.cuda.synchronize()
+    assert _bits_equal(got, want)
+    assert LAUNCHES[name] == before + 1
+
+
+@pytest.mark.requires_cuda
+@pytest.mark.parametrize("m", [1, 3, 4, 7, 8, 9])
+@pytest.mark.parametrize("form", ["gather", "add", "mul_q"])
+def test_k1_short_streams_on_card(cuda_device, form, m):
+    """Fewer slots than one vector, or a vector and a ragged tail."""
+    g = np.random.default_rng(m)
+    x, wv = _weighted_cases(g, form.endswith("_q"))
+    src = g.integers(0, x.size, m).astype(np.int32)
+    args = [torch.from_numpy(a).to(cuda_device)
+            for a in (x, src, g.choice(wv, m))]
+    got, want = _k1_call(form, *args, K1_WINDOW)
+    torch.cuda.synchronize()
+    assert _bits_equal(got, want)
