@@ -1,5 +1,6 @@
 #!/usr/bin/env python3
-"""On-card check of graph_tpu_torch: PageRank, WCC and SSSP at RMAT scale 22.
+"""On-card check of graph_tpu_torch: PageRank, WCC and SSSP at RMAT scale 22,
+and the same graph loaded from files through the builder.
 
 Run from the repository root on a machine with one CUDA card:
 
@@ -20,7 +21,16 @@ m = 67,108,864, seed 42):
 * ``delta_stepping`` with bench.py's weights (``default_rng(3).random(m)
   * 4``) from the node of largest out-degree (node 0, bench.py's start,
   has no out-edge in this graph), every edge held to the f32
-  shortest-path certificate and the unreached set to scipy's BFS.
+  shortest-path certificate and the unreached set to scipy's BFS;
+* the builder: the same edges written as a packed Graph500 file, loaded
+  with ``GraphBuilder`` and held to ``build_directed``'s CSRs and to the
+  ``page_rank`` scores bit for bit; written as the LDBC text layout
+  (``graph-500-22/graph500-22.e``), parsed by the native parser through
+  ``load_graph500`` and held to the ``wcc`` labels; built in host memory
+  by the native radix builder and held to the card's SORTED build;
+  relabeled by degree on the card (its invariants checked); and written
+  and read back as a binary snapshot.  Its set-up seconds are printed
+  with the card's name and power limit.
 
 Each path runs with the launch counts set to 0 just before and read just
 after, and fails unless each of its kernels launched at least once per
@@ -34,12 +44,15 @@ Any failed check exits non-zero without that line, as does a machine
 without a CUDA device.
 """
 
+import dataclasses
+import gc
 import json
 import os
 import subprocess
 import sys
 import time
 import traceback
+from concurrent.futures import ThreadPoolExecutor
 
 import numpy as np
 
@@ -59,14 +72,24 @@ PROBE_WINDOWS = (0, 16384, 32768, 40960, 49152, 58112)
 #: The kernels each path must launch at least once per iteration.
 PATH_KERNELS = {"pagerank": ("k1_gather", "k2_reduce"),
                 "wcc": ("k1_gather", "k2_reduce_min"),
-                "sssp": ("k1_gather_weighted", "k2_reduce_min")}
+                "sssp": ("k1_gather_weighted", "k2_reduce_min"),
+                "builder_pagerank": ("k1_gather", "k2_reduce"),
+                "builder_wcc": ("k1_gather", "k2_reduce_min")}
 WIKI = np.array([(1, 2), (2, 1), (4, 0), (4, 1), (5, 4), (5, 1), (5, 6),
                  (6, 1), (6, 5), (7, 1), (7, 5), (8, 1), (8, 5), (9, 1),
                  (9, 5), (10, 1), (10, 5), (11, 5), (12, 5)])
+#: The port's host C++ (the edge-list parser, the host CSR builder).
+HOST_SOURCES = ("edgelist_parser.cpp", "host_csr.cpp")
 #: The reference's SSSP golden (tests/test_sssp.py): a..f = 0..5.
 GOLDEN_EDGES = np.array([(0, 1, 4.0), (0, 2, 2.0), (1, 2, 5.0), (1, 3, 10.0),
                          (2, 4, 3.0), (3, 5, 11.0), (4, 3, 4.0)])
 GOLDEN = [0.0, 4.0, 2.0, 9.0, 5.0, 20.0]
+#: The same graph in GDL, as tests/test_sssp.py builds it.
+GOLDEN_GDL = """(a:A) (b:B) (c:C) (d:D) (e:E) (f:F)
+                (a)-[{cost:  4.0 }]->(b) (a)-[{cost:  2.0 }]->(c)
+                (b)-[{cost:  5.0 }]->(c) (b)-[{cost: 10.0 }]->(d)
+                (c)-[{cost:  3.0 }]->(e) (d)-[{cost: 11.0 }]->(f)
+                (e)-[{cost:  4.0 }]->(d)"""
 
 
 class SmokeFailure(Exception):
@@ -302,7 +325,51 @@ def small_graph_checks(gtt, dev):
     out["sssp"] = {"golden": d_golden.distances_np().tolist(),
                    "rmat12_rounds": card_s.ran_iterations,
                    "rmat12_reached": reached}
+    out["builder"] = builder_goldens(gtt, dev, {
+        "wiki": ((WIKI[:, 0], WIKI[:, 1]), 13), "rmat12": (r12, 1 << 12)})
     return out
+
+
+def builder_goldens(gtt, dev, graphs):
+    """The goldens through GraphBuilder on the card: the wiki graph's
+    converged PageRank against the CPU port (within 1e-6, same
+    iterations) and the SSSP golden from GDL; then the degree relabel of
+    each small graph, card against CPU, exactly."""
+    cfg = gtt.PageRankConfig(max_iterations=200, tolerance=1e-6)
+    wiki = {d: gtt.page_rank(gtt.GraphBuilder(device=d).edges(WIKI)
+                             .build_directed(), cfg) for d in (dev, "cpu")}
+    err = float(np.abs(wiki[dev].scores_np()
+                       - wiki["cpu"].scores_np()).max())
+    check(wiki[dev].ran_iterations == wiki["cpu"].ran_iterations,
+          f"wiki (builder): {wiki[dev].ran_iterations} iterations on the "
+          f"card, {wiki['cpu'].ran_iterations} on the CPU")
+    check(err <= 1e-6, f"wiki (builder): card and CPU differ by {err}")
+    golden = gtt.delta_stepping(
+        gtt.GraphBuilder(device=dev).csr_layout(gtt.CsrLayout.DEDUPLICATED)
+        .gdl(GOLDEN_GDL).build_directed(), gtt.DeltaSteppingConfig(0, 3.0))
+    check(golden.distances_np().tolist() == GOLDEN,
+          f"SSSP golden (GDL): {golden.distances_np().tolist()}")
+    for name, ((src, dst), n) in graphs.items():
+        rel = {d: gtt.make_degree_ordered(gtt.build_undirected(
+            src, dst, node_count=n, node_values=np.arange(n, dtype=np.int64),
+            device=d)) for d in (dev, "cpu")}
+        for f in ("offsets", "sources", "targets"):
+            check(torch_equal(getattr(rel[dev].csr, f),
+                              getattr(rel["cpu"].csr, f)),
+                  f"{name}: degree relabel's {f} differ, card and CPU")
+        check(torch_equal(rel[dev].node_values, rel["cpu"].node_values),
+              f"{name}: degree relabel's node values differ")
+    return {"wiki_pagerank_iterations": wiki[dev].ran_iterations,
+            "wiki_pagerank_max_abs_vs_cpu": err,
+            "sssp_golden_gdl": golden.distances_np().tolist(),
+            "relabel_equal_to_cpu": sorted(graphs)}
+
+
+def torch_equal(a, b):
+    """Equal shapes, dtypes and values, wherever the two tensors lie."""
+    import torch
+
+    return a.dtype == b.dtype and torch.equal(a, b.to(a.device))
 
 
 def gate(eng, src, dst, n, dev):
@@ -365,7 +432,7 @@ def wcc_phase(gtt, kernels, graph, src, dst, n):
           "components": int(np.unique(want).size),
           "host_check_s": time.perf_counter() - t0,
           "max_in_degree": int(torch.diff(sym.plan.indptr).max())})
-    return sym, launches
+    return sym, launches, labels
 
 
 def sssp_phase(gtt, kernels, src, dst, n, dev):
@@ -432,6 +499,198 @@ def sssp_phase(gtt, kernels, src, dst, n, dev):
           "max_distance": float(dist[reached].max()),
           "host_check_s": time.perf_counter() - t0})
     return eng, res, launches
+
+
+def edge_text(src, dst):
+    """``"src dst\\n"`` per edge as bytes: fixed-width digits, then the
+    leading zeros dropped."""
+    w = max(len(str(int(max(src.max(), dst.max())))), 1)
+    pow10 = 10 ** np.arange(w - 1, -1, -1, dtype=np.int64)
+    chars = np.empty((src.size, 2 * w + 2), np.uint8)
+    keep = np.ones(chars.shape, bool)
+    for col, v in ((0, src), (w + 1, dst)):
+        digits = v[:, None] // pow10
+        chars[:, col:col + w] = 48 + digits % 10
+        keep[:, col:col + w - 1] = digits[:, :-1] > 0
+    chars[:, w] = 32
+    chars[:, -1] = 10
+    return chars[keep]
+
+
+def write_edge_text(path, src, dst, step=1 << 21):
+    """The LDBC ``.e`` layout, chunks formatted on 8 threads, in order."""
+    os.makedirs(os.path.dirname(path), exist_ok=True)
+    tmp = f"{path}.{os.getpid()}.tmp"
+    with open(tmp, "wb") as f, ThreadPoolExecutor(8) as ex:
+        for buf in ex.map(lambda lo: edge_text(src[lo:lo + step],
+                                               dst[lo:lo + step]),
+                          range(0, src.size, step)):
+            buf.tofile(f)
+    os.replace(tmp, path)
+
+
+def builder_phase(gtt, kernels, dev, card, src, dst, n, graph, pr_cfg,
+                  pr_res, wcc_labels):
+    """The front door at full scale: the RMAT written as a Graph500 file
+    and as LDBC text, each loaded through the builder into PageRank and
+    WCC, held to the phases above bit for bit; the host build against
+    the card's; the degree relabel's invariants; a snapshot round trip.
+    Each file is written once into .cache/ and reused."""
+    import torch
+
+    from graph_tpu_torch.io import edgelist
+    from graph_tpu_torch.io.graph500 import write_graph500
+    from graph_tpu_torch.native import edge_list_parser, host_csr
+
+    cache = os.path.join(ROOT, ".cache", "builder")
+    os.makedirs(cache, exist_ok=True)
+    secs, out = {}, {}
+
+    def timed(name, fn):
+        _sync()
+        t0 = time.perf_counter()
+        res = fn()
+        _sync()
+        secs[name] = time.perf_counter() - t0
+        return res
+
+    def same_csr(got, want, what):
+        for f in ("offsets", "sources", "targets"):
+            check(torch_equal(getattr(got, f), getattr(want, f)),
+                  f"{what}: {f} differ")
+
+    # 1. Graph500 file -> build_directed -> page_rank, bit for bit
+    g500 = os.path.join(cache, f"rmat_s{SCALE}.graph500")
+    if not os.path.exists(g500):
+        timed("graph500_write_s", lambda: write_graph500(g500, src, dst))
+    b = gtt.GraphBuilder(device=dev).file_format(gtt.Graph500Input())
+    timed("graph500_parse_s", lambda: b.path(g500))
+    g = timed("graph500_build_directed_s", b.build_directed)
+    check(g.node_count == n, f"Graph500 file: node_count {g.node_count}")
+    same_csr(g.csr_out, graph.csr_out, "Graph500 file: out-CSR")
+    same_csr(g.csr_in, graph.csr_in, "Graph500 file: in-CSR")
+    res, out["pagerank_launches"] = drive(
+        kernels, "builder_pagerank", lambda: gtt.page_rank(g, pr_cfg),
+        lambda r: r.ran_iterations)
+    check(res.ran_iterations == pr_res.ran_iterations
+          and torch.equal(res.scores, pr_res.scores),
+          "Graph500 file: PageRank differs from the pagerank phase's")
+    # one run, on page_rank's own timer: the plan build is not in it
+    out["pagerank_run_s"] = res.micros / 1e6
+    del b, g, res
+    free_device()
+
+    # 2. LDBC text -> native parser -> undirected -> wcc, exactly
+    datasets = os.path.join(cache, "datasets")
+    e_path = os.path.join(datasets, f"graph-500-{SCALE}",
+                          f"graph500-{SCALE}.e")
+    if not os.path.exists(e_path):
+        timed("text_write_s", lambda: write_edge_text(e_path, src, dst))
+    out["text_bytes"] = os.path.getsize(e_path)
+    # one load; the parse inside it is timed apart by wrapping the reader
+    parse = edgelist.read_edge_list
+    edgelist.read_edge_list = lambda *a: timed("text_parse_s",
+                                               lambda: parse(*a))
+    try:
+        ug = timed("text_load_graph500_s",
+                   lambda: gtt.load_graph500(SCALE, datasets=datasets,
+                                             device=dev))
+    finally:
+        edgelist.read_edge_list = parse
+    check("text_parse_s" in secs, "LDBC text: the edge-list reader not run")
+    check(edge_list_parser.load_error() is None,
+          f"LDBC text: pandas parsed it; the native parser: "
+          f"{edge_list_parser.load_error()}")
+    out["text_parser"] = "native"
+    # an edge list's node count is its largest id + 1: the highest ids,
+    # if isolated, are not in the file, and each is its own component
+    nt = ug.node_count
+    check(nt <= n and nt == int(max(src.max(), dst.max())) + 1
+          and ug.edge_count == src.size,
+          f"LDBC text: {nt} nodes, {ug.edge_count} edges")
+    out["text_node_count"] = nt
+    res, out["wcc_launches"] = drive(kernels, "builder_wcc",
+                                     lambda: gtt.wcc(ug),
+                                     lambda r: r.ran_iterations)
+    check(torch.equal(res.components, wcc_labels[:nt]) and torch.equal(
+        wcc_labels[nt:], torch.arange(nt, n, dtype=wcc_labels.dtype,
+                                      device=wcc_labels.device)),
+          "LDBC text: WCC labels differ from the wcc phase's")
+    out["wcc_rounds"] = res.ran_iterations
+    out["wcc_run_s"] = res.micros / 1e6
+    del res
+
+    # 3. host build against the card's; the degree relabel on the card
+    hb = timed("host_build_undirected_sorted_s",
+               lambda: gtt.build_undirected_host(
+                   src, dst, node_count=n, layout=gtt.CsrLayout.SORTED))
+    check(host_csr.load_error() is None,
+          f"native host builder: {host_csr.load_error()}")
+    cb = timed("card_build_undirected_sorted_s",
+               lambda: gtt.build_undirected(
+                   src, dst, node_count=n, layout=gtt.CsrLayout.SORTED,
+                   device=dev))
+    same_csr(hb.csr, cb.csr, "host build against the card's")
+    del hb, cb
+    free_device()
+    ids = dataclasses.replace(
+        ug, node_values=torch.arange(nt, dtype=torch.int64, device=dev))
+    rel = timed("relabel_s", lambda: gtt.make_degree_ordered(ids))
+    out["relabel"] = relabel_invariants(ids, rel)
+    del ug, ids, rel
+    free_device()
+
+    # 4. snapshot round trip of the directed graph
+    snap = os.path.join(cache, f"rmat_s{SCALE}.gtpu")
+    timed("snapshot_write_s", lambda: gtt.save_graph(snap, graph))
+    back = timed("snapshot_read_s", lambda: gtt.GraphBuilder(device=dev)
+                 .file_format(gtt.BinaryInput()).path(snap).build_directed())
+    same_csr(back.csr_out, graph.csr_out, "snapshot: out-CSR")
+    same_csr(back.csr_in, graph.csr_in, "snapshot: in-CSR")
+    check(back.layout is graph.layout, "snapshot: layout differs")
+    out["snapshot_bytes"] = os.path.getsize(snap)
+    del back
+    os.remove(snap)
+    free_device()
+    emit({"phase": "builder", "scale": SCALE, "n": n, "m": int(src.size),
+          "card": card, "setup_s": secs, **out})
+    return out
+
+
+def relabel_invariants(g, rel):
+    """make_degree_ordered on the card: degrees non-increasing, ties in
+    descending old id (node values carry the old ids), each node's
+    degree kept, sorted neighbour lists, the edge count unchanged."""
+    import torch
+
+    deg, old = rel.degrees(), rel.node_values
+    check(bool((deg[1:] <= deg[:-1]).all()), "relabel: degrees increase")
+    tie = deg[1:] == deg[:-1]
+    check(bool((old[1:][tie] < old[:-1][tie]).all()),
+          "relabel: ties not in descending old id")
+    check(torch.equal(torch.sort(old).values,
+                      torch.arange(g.node_count, device=old.device)),
+          "relabel: node values are not a permutation")
+    check(torch.equal(deg, g.degrees()[old]), "relabel: degrees changed")
+    s, t = rel.csr.sources, rel.csr.targets
+    same_row = s[1:] == s[:-1]
+    check(bool((t[1:][same_row] >= t[:-1][same_row]).all()),
+          "relabel: neighbour lists not sorted")
+    check(rel.edge_count == g.edge_count and rel.layout.name == "SORTED",
+          f"relabel: {rel.edge_count} edges, layout {rel.layout}")
+    return {"max_degree": int(deg[0]), "tied_pairs": int(tie.sum())}
+
+
+def launches_of(path, builder):
+    """A path's launches and its builder run's, added, kernel by kernel."""
+    return {name: path[name] + builder[name] for name in path}
+
+
+def free_device():
+    import torch
+
+    gc.collect()
+    torch.cuda.empty_cache()
 
 
 def bound_of(nbytes, nops):
@@ -506,6 +765,7 @@ def run():
         from graph_tpu_torch.algos.pagerank import _graph_engine
         from graph_tpu_torch.engine import _build, kernels
         from graph_tpu_torch.generate import cached_rmat
+        from graph_tpu_torch.native.build import build_library
     except ImportError as exc:
         print(f"chip_smoke: graph_tpu_torch not found next to this script "
               f"({exc})", file=sys.stderr)
@@ -515,12 +775,16 @@ def run():
     print(card, flush=True)
     k = kernels
 
-    # 1. card and kernel build (one nvcc per source, all started together)
+    # 1. card and kernel build (one nvcc per source, all started together,
+    # and beside them one g++ per host C++ source)
     t0 = time.perf_counter()
-    built = _build.build()
+    with ThreadPoolExecutor(len(HOST_SOURCES)) as ex:
+        host = [ex.submit(build_library, name) for name in HOST_SOURCES]
+        built = _build.build()
+        host_built = [os.path.basename(f.result()) for f in host]
     emit({"phase": "card", "nvidia_smi": card,
           "torch": torch.__version__, "cuda": torch.version.cuda,
-          "kernels_built": built,
+          "kernels_built": built, "host_libraries": host_built,
           "build_s": time.perf_counter() - t0})
 
     # 2. kernels against their plain versions at edge-case shapes, then
@@ -572,12 +836,20 @@ def run():
           "launches": pr_launches})
 
     # 4. the WCC and SSSP paths, on the same RMAT edges
-    sym, wcc_launches = wcc_phase(gtt, k, graph, src, dst, n)
+    sym, wcc_launches, wcc_labels = wcc_phase(gtt, k, graph, src, dst, n)
     weng, sssp_res, sssp_launches = sssp_phase(gtt, k, src, dst, n, dev)
+
+    # 5. the same graph from files, through the builder
+    bld = builder_phase(gtt, k, dev, card, src, dst, n, graph, cfg, res,
+                        wcc_labels)
+    del wcc_labels
     emit({"phase": "memory",
           "peak_mem_gb": torch.cuda.max_memory_allocated() / 1e9})
 
-    # 5. each kernel at its path's shapes: exactness, then times
+    # 6. each kernel at its path's shapes: exactness, then times.  The
+    # pagerank and wcc rows count the builder phase's runs of those paths.
+    pr_launches = launches_of(pr_launches, bld["pagerank_launches"])
+    wcc_launches = launches_of(wcc_launches, bld["wcc_launches"])
     table = []
     plan, h, cuts = eng.plan, eng.window, eng.k2_cuts
     xq = torch.round(eng.to_internal(x_t) * float(1 << 30)).to(torch.int32)

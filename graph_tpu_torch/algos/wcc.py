@@ -26,7 +26,7 @@ from typing import Optional, Union
 import numpy as np
 import torch
 
-from graph_tpu_torch.device import synchronize
+from graph_tpu_torch.device import run_device, synchronize
 from graph_tpu_torch.dtypes import check_node_count_fits
 from graph_tpu_torch.engine.engine import EdgeEngine, engine_for
 from graph_tpu_torch.errors import not_ported
@@ -70,9 +70,10 @@ class WccResult:
 
 
 def wcc(graph: Union[DirectedCsrGraph, UndirectedCsrGraph],
-        config: Optional[WccConfig] = None) -> WccResult:
+        config: Optional[WccConfig] = None, *, device=None) -> WccResult:
     """Weakly connected components of a directed or undirected graph, on
-    the graph's device.
+    ``device`` (by default the graph's own; see
+    :func:`graph_tpu_torch.device.run_device`).
 
     Mirrors ``wcc_afforest_dss(&g, WccConfig) -> impl Components``
     (wcc.rs:144).
@@ -87,39 +88,44 @@ def wcc(graph: Union[DirectedCsrGraph, UndirectedCsrGraph],
         raise not_ported("engine='xla'")
     if config.engine not in ("auto", "plan"):
         raise ValueError(f"unknown WCC engine {config.engine!r}")
-    return _wcc_plan(graph)
+    return _wcc_plan(graph, device)
 
 
-def wcc_components(graph, config: Optional[WccConfig] = None) -> torch.Tensor:
+def wcc_components(graph, config: Optional[WccConfig] = None, *,
+                   device=None) -> torch.Tensor:
     """Convenience: just the component-id array."""
-    return wcc(graph, config).components
+    return wcc(graph, config, device=device).components
 
 
-def wcc_baseline(graph, config: Optional[WccConfig] = None) -> WccResult:
+def wcc_baseline(graph, config: Optional[WccConfig] = None, *,
+                 device=None) -> WccResult:
     """Reference analog: ``wcc_baseline`` (wcc.rs:103) — link every edge.
 
     All three reference variants compute the same fully specified
     partition; they differ only in CPU work-skipping heuristics, so each
     maps onto the same min-label fixed point here.
     """
-    return wcc(graph, config)
+    return wcc(graph, config, device=device)
 
 
-def wcc_afforest(graph, config: Optional[WccConfig] = None) -> WccResult:
+def wcc_afforest(graph, config: Optional[WccConfig] = None, *,
+                 device=None) -> WccResult:
     """Reference analog: ``wcc_afforest`` (wcc.rs:127); see
     :func:`wcc_baseline`."""
-    return wcc(graph, config)
+    return wcc(graph, config, device=device)
 
 
-def wcc_afforest_dss(graph, config: Optional[WccConfig] = None) -> WccResult:
+def wcc_afforest_dss(graph, config: Optional[WccConfig] = None, *,
+                     device=None) -> WccResult:
     """Reference analog: ``wcc_afforest_dss`` (wcc.rs:144); see
     :func:`wcc_baseline`."""
-    return wcc(graph, config)
+    return wcc(graph, config, device=device)
 
 
-def _sym_engine(graph) -> EdgeEngine:
-    """EdgeEngine over the symmetrized edge list (weakly connected), on
-    the graph's device.  No relabel: labels are public node ids."""
+def _sym_engine(graph, device=None) -> EdgeEngine:
+    """EdgeEngine over the symmetrized edge list (weakly connected),
+    where the graph runs.  No relabel: labels are public node ids."""
+    device = run_device(graph, device)
 
     def build():
         if isinstance(graph, UndirectedCsrGraph):
@@ -127,13 +133,12 @@ def _sym_engine(graph) -> EdgeEngine:
         else:
             s0, t0 = graph.csr_out.sources, graph.csr_out.targets
             src, dst = torch.cat([s0, t0]), torch.cat([t0, s0])
-        return EdgeEngine.build(src, dst, graph.node_count,
-                                device=graph.device)
+        return EdgeEngine.build(src, dst, graph.node_count, device=device)
 
-    return engine_for(graph, "sym", build)
+    return engine_for(graph, ("sym", device), build)
 
 
-def _wcc_plan(graph) -> WccResult:
+def _wcc_plan(graph, device=None) -> WccResult:
     """Min-label propagation with the EdgeEngine's integer segment-min.
 
     Labels are int32 node ids end to end; each round is one hook over
@@ -141,7 +146,7 @@ def _wcc_plan(graph) -> WccResult:
     """
     n = graph.node_count
     check_node_count_fits(n, np.int32)  # labels are int32 node ids
-    eng = _sym_engine(graph)
+    eng = _sym_engine(graph, device)
     start = time.perf_counter()
     comp = torch.arange(n, dtype=torch.int32, device=eng.device)
     iters = 0

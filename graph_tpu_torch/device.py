@@ -3,7 +3,9 @@
 Every entry point takes ``device``.  Given, it is used as is; not given,
 the entry point runs on the card, and raises when there is none.  The
 port never moves to the CPU on its own: a CPU run is asked for, as the
-tests do with ``device="cpu"``.
+tests do with ``device="cpu"``.  Algorithms run where their graph lies,
+unless the caller names another device or the graph is host-resident
+(:func:`run_device`).
 """
 
 from __future__ import annotations
@@ -20,6 +22,18 @@ def resolve_device(device=None) -> torch.device:
             "graph_tpu_torch runs on a CUDA device and none is available; "
             "pass device='cpu' to run on the CPU")
     return torch.device("cuda")
+
+
+def run_device(graph, device=None) -> torch.device:
+    """Where an algorithm runs on ``graph``: ``device`` when given, else
+    the graph's own device.  A host-resident graph (``graph.host``) has
+    none: it runs on the card, and raises without one, like any entry
+    point given no device."""
+    if device is not None:
+        return torch.device(device)
+    if getattr(graph, "host", False):
+        return resolve_device(None)
+    return graph.device
 
 
 def synchronize(device: torch.device) -> None:

@@ -1,7 +1,10 @@
 from graph_tpu_torch.graph.csr import (
     Csr, CsrLayout, DirectedCsrGraph, UndirectedCsrGraph)
 from graph_tpu_torch.graph.build import (
-    build_directed, build_undirected, csr_from_coo)
+    build_directed, build_undirected, build_undirected_host, csr_from_coo)
+from graph_tpu_torch.graph.ops import (
+    degree_order_permutation, degree_partition, make_degree_ordered,
+    to_undirected)
 
 __all__ = [
     "Csr",
@@ -10,5 +13,10 @@ __all__ = [
     "UndirectedCsrGraph",
     "build_directed",
     "build_undirected",
+    "build_undirected_host",
     "csr_from_coo",
+    "degree_order_permutation",
+    "degree_partition",
+    "make_degree_ordered",
+    "to_undirected",
 ]

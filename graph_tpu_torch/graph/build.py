@@ -1,8 +1,8 @@
-"""CSR construction from COO edge streams, on the device.
+"""CSR construction from COO edge streams, on the device or the host.
 
 Counterpart of ``graph_tpu.graph.build`` (reference analog: the parallel
 CSR builder, crates/builder/src/graph/csr.rs:124-221).  No atomics and
-no scatter races — every step is a sort:
+no scatter races — every step of the device build is a sort:
 
 1. a stable ``torch.sort`` by row (UNSORTED keeps each row's input
    order), or by col and then by row for the (row, col) order;
@@ -10,6 +10,10 @@ no scatter races — every step is a sort:
    rows;
 3. DEDUPLICATED: first-of-run mask without self-loops, then compaction
    (one host sync for the kept count).
+
+:func:`build_undirected_host` builds the same undirected CSR in host
+memory, through the native radix builder (``native/host_csr.cpp``) for
+int32 ids and numpy otherwise.
 """
 
 from __future__ import annotations
@@ -24,6 +28,10 @@ from graph_tpu_torch.dtypes import (
     canonical_id_dtype, check_node_count_fits, torch_id_dtype)
 from graph_tpu_torch.graph.csr import (
     Csr, CsrLayout, DirectedCsrGraph, UndirectedCsrGraph)
+
+#: The native builder's layout codes (and the binary snapshot's).
+LAYOUT_CODES = {CsrLayout.UNSORTED: 0, CsrLayout.SORTED: 1,
+                CsrLayout.DEDUPLICATED: 2}
 
 
 def _as_tensor(a, device: torch.device, dtype=None) -> torch.Tensor:
@@ -153,3 +161,73 @@ def build_undirected(
                        device=device)
     nv = None if node_values is None else _as_tensor(node_values, device)
     return UndirectedCsrGraph(csr=csr, node_values=nv, layout=layout)
+
+
+def _host_array(a) -> np.ndarray:
+    return a.cpu().numpy() if isinstance(a, torch.Tensor) else np.asarray(a)
+
+
+def build_undirected_host(
+    src,
+    dst,
+    values=None,
+    *,
+    node_count: Optional[int] = None,
+    layout: CsrLayout = CsrLayout.UNSORTED,
+    id_dtype=np.int32,
+    node_values=None,
+) -> UndirectedCsrGraph:
+    """Host-resident undirected build: the CSR as CPU tensors, marked
+    ``host`` (see :class:`UndirectedCsrGraph`).
+
+    For pipelines whose next step reads the edge list back on the host
+    (triangle counting above all), so that the graph never makes a round
+    trip through the card.  An algorithm given the result still runs on
+    the card unless its caller passes ``device="cpu"``.  Results are
+    identical to :func:`build_undirected`'s: UNSORTED rows keep their
+    input order, as the device build's stable sort does.
+    """
+    n = _infer_node_count(src, dst, node_count)
+    dt = canonical_id_dtype(id_dtype)
+    check_node_count_fits(n, dt)
+    src, dst = _host_array(src), _host_array(dst)
+    if values is not None:
+        values = _host_array(values)
+    nv = None if node_values is None else torch.from_numpy(
+        np.ascontiguousarray(_host_array(node_values)))
+
+    native = None
+    if dt == np.int32:  # the C++ radix builder emits int32 ids
+        from graph_tpu_torch.native.host_csr import build_undirected_native
+
+        native = build_undirected_native(src, dst, values, n,
+                                         LAYOUT_CODES[layout])
+    if native is not None:
+        offsets, rows, cols, vals = native
+    else:
+        rows = np.concatenate([src, dst]).astype(np.int64)
+        cols = np.concatenate([dst, src]).astype(np.int64)
+        vals = None if values is None else np.concatenate([values, values])
+        if layout is CsrLayout.UNSORTED:
+            order = np.argsort(rows, kind="stable")
+        else:
+            order = np.lexsort((cols, rows))
+        rows, cols = rows[order], cols[order]
+        if vals is not None:
+            vals = vals[order]
+        if layout is CsrLayout.DEDUPLICATED and rows.size:
+            keep = np.ones(rows.size, bool)
+            keep[1:] = (rows[1:] != rows[:-1]) | (cols[1:] != cols[:-1])
+            keep &= rows != cols
+            rows, cols = rows[keep], cols[keep]
+            if vals is not None:
+                vals = vals[keep]
+        offsets = np.searchsorted(rows, np.arange(n + 1)).astype(dt)
+        rows, cols = rows.astype(dt), cols.astype(dt)
+        if vals is not None:
+            vals = vals.astype(np.float32)
+    csr = Csr(offsets=torch.from_numpy(offsets),
+              sources=torch.from_numpy(rows), targets=torch.from_numpy(cols),
+              values=None if vals is None else torch.from_numpy(vals))
+    return UndirectedCsrGraph(csr=csr, node_values=nv, layout=layout,
+                              host=True)

@@ -118,11 +118,17 @@ class UndirectedCsrGraph:
     Reference analog: ``UndirectedCsrGraph`` (csr.rs:658-690) — every
     input edge ``(u, v)`` appears as both ``u→v`` and ``v→u``;
     ``edge_count`` is ``targets.len() / 2`` (csr.rs:687-689).
+
+    ``host`` marks a host-resident graph (``build_undirected_host``): its
+    tensors lie in host memory and it has no device of its own, so an
+    algorithm given it runs on the device its caller names, the card by
+    default (:func:`graph_tpu_torch.device.run_device`).
     """
 
     csr: Csr
     node_values: Optional[torch.Tensor] = None
     layout: CsrLayout = CsrLayout.UNSORTED
+    host: bool = False
 
     @property
     def node_count(self) -> int:

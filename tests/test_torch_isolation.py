@@ -16,8 +16,19 @@ PORT_FILES = sorted((ROOT / "graph_tpu_torch").rglob("*.py")) + [
     ROOT / "chip_smoke.py"]
 
 
+#: Every module of the port, imported by name.
+PORT_MODULES = sorted(
+    ".".join(p.relative_to(ROOT).with_suffix("").parts).removesuffix(
+        ".__init__")
+    for p in (ROOT / "graph_tpu_torch").rglob("*.py"))
+
+
 def test_import_pulls_in_no_jax():
-    code = ("import sys, graph_tpu_torch, graph_tpu_torch.generate; "
+    assert {"graph_tpu_torch.builder", "graph_tpu_torch.io.edgelist",
+            "graph_tpu_torch.native.host_csr"} <= set(PORT_MODULES)
+    code = ("import importlib, sys\n"
+            f"for name in {PORT_MODULES!r}:\n"
+            "    importlib.import_module(name)\n"
             "bad = [m for m in sys.modules if m.split('.')[0] in "
             "('jax', 'jaxlib', 'graph_tpu')]; print(bad); "
             "sys.exit(1 if bad else 0)")
@@ -69,3 +80,49 @@ def test_entry_points_raise_without_device_or_card(no_card):
     # asked for, the CPU works
     assert build_directed(src, dst, device="cpu").device.type == "cpu"
     assert build_undirected(src, dst, device="cpu").device.type == "cpu"
+
+
+def test_port_opens_nothing_of_the_jax_side(tmp_path):
+    """Building the host C++, parsing, building on the host and writing
+    and reading a snapshot open no file, and start no compiler on a file,
+    under the repository's root ``native/`` or ``graph_tpu/``: the port
+    compiles its own copies."""
+    code = f"""
+import os, sys
+seen = []
+sys.addaudithook(lambda event, args: seen.append((event, args))
+                 if event in ("open", "subprocess.Popen") else None)
+import pathlib
+import graph_tpu_torch as gtt
+from graph_tpu_torch.native import build
+build.BUILD_DIR = pathlib.Path({str(tmp_path)!r}) / "build"  # compile here
+el = os.path.join({str(tmp_path)!r}, "g.el")
+open(el, "w").write("0 1\\n1 2\\n2 0\\n")
+g = gtt.GraphBuilder().path(el).build_undirected(host=True)
+snap = os.path.join({str(tmp_path)!r}, "g.bin")
+gtt.save_graph(snap, g)
+gtt.load_graph(snap, device="cpu")
+paths, compiled = [], 0
+for event, args in seen:
+    items = args[1] if event == "subprocess.Popen" else [args[0]]
+    items = [os.path.realpath(str(a)) for a in items or ()
+             if isinstance(a, (str, os.PathLike))]
+    compiled += event == "subprocess.Popen" and any(
+        a.endswith(".cpp") for a in items)
+    paths += items
+print(compiled, "sources compiled")
+for p in paths:
+    print(p)
+"""
+    r = subprocess.run([sys.executable, "-c", code], cwd=ROOT,
+                       capture_output=True, text=True, timeout=300,
+                       env={**os.environ, "PYTHONPATH": str(ROOT)})
+    assert r.returncode == 0, r.stdout + r.stderr
+    lines = r.stdout.splitlines()
+    assert lines[0] == "2 sources compiled", r.stdout
+    forbidden = [str(ROOT / "native"), str(ROOT / "graph_tpu")]
+    for p in lines[1:]:
+        assert not any(p == f or p.startswith(f + os.sep)
+                       for f in forbidden), p
+    assert any(p.startswith(str(ROOT / "graph_tpu_torch" / "native"))
+               and p.endswith(".cpp") for p in lines[1:])
