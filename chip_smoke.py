@@ -1,6 +1,7 @@
 #!/usr/bin/env python3
-"""On-card check of graph_tpu_torch: PageRank, WCC and SSSP at RMAT scale 22,
-and the same graph loaded from files through the builder.
+"""On-card check of graph_tpu_torch: PageRank, WCC, SSSP and triangle count
+at RMAT scale 22 on every engine, in core and out of core, and the same
+graph loaded from files through the builder.
 
 Run from the repository root on a machine with one CUDA card:
 
@@ -30,11 +31,26 @@ m = 67,108,864, seed 42):
   by the native radix builder and held to the card's SORTED build;
   relabeled by degree on the card (its invariants checked); and written
   and read back as a binary snapshot.  Its set-up seconds are printed
-  with the card's name and power limit.
+  with the card's name and power limit;
+* ``global_triangle_count`` on the same edges built DEDUPLICATED on the
+  card (distinct triangles), unchanged by ``make_degree_ordered``, with
+  its host preparation, card seconds and one slab of each join design
+  timed; at scale 16 the distinct count against scipy and the SORTED
+  multiset count against a host model; the native orientation must load;
+* the segment-op engines (PageRank ``cumsum``/``scatter``, the logged
+  plan PageRank, WCC ``xla``, SSSP ``xla``), each held to the plan
+  path's result, and SSSP ``plan``/``frontier``/``xla`` on bench.py's
+  1024 x 1024 grid; every engine's seconds and host reads, there and on
+  RMAT 12 to 18, from which the ``auto`` rules are decided;
+* the out-of-core engine with 8 slabs: ``spmv``, ``smin_int`` and
+  ``relax`` bit-exact against resident engines, the three drivers
+  against the phases above, ms and bytes per call beside a plain pinned
+  copy of the same bytes, and the card memory one call takes.
 
 Each path runs with the launch counts set to 0 just before and read just
 after, and fails unless each of its kernels launched at least once per
-iteration.  A window probe then times K1 at the PageRank and SSSP shapes
+iteration (per slab, out of core); the kernel rows add up every path's
+runs.  A window probe then times K1 at the PageRank and SSSP shapes
 with several shared-memory windows (0 among them) in this one process.
 It prints one JSON line per phase; the line before the last lists the
 kernels, with each design's facts (K2's tile, K1's window and the share
@@ -69,12 +85,28 @@ SCALAR_OPS_PER_S = 67e12
 BYTES_PER_EDGE = 12.0
 #: K1 windows the probe times (sources kept in shared memory per block).
 PROBE_WINDOWS = (0, 16384, 32768, 40960, 49152, 58112)
+#: Scale of the triangle phase's host checks (scale 22 has about 51e9
+#: multiset wedges); side of bench.py's SSSP grid; out-of-core slabs.
+TC_CHECK_SCALE = 16
+GRID_SIDE = 1024
+OOC_SLABS = 8
+#: Smaller RMAT scales the engines phase times every engine on.
+SWEEP_SCALES = (12, 14, 16, 18)
+#: PageRank "scatter" against a float64 Jacobi, per node:
+#: |scatter - f64| <= SCATTER_RTOL * |f64| + SCATTER_ATOL.
+SCATTER_RTOL = 1e-4
+SCATTER_ATOL = 1e-9
 #: The kernels each path must launch at least once per iteration.
 PATH_KERNELS = {"pagerank": ("k1_gather", "k2_reduce"),
                 "wcc": ("k1_gather", "k2_reduce_min"),
                 "sssp": ("k1_gather_weighted", "k2_reduce_min"),
                 "builder_pagerank": ("k1_gather", "k2_reduce"),
-                "builder_wcc": ("k1_gather", "k2_reduce_min")}
+                "builder_wcc": ("k1_gather", "k2_reduce_min"),
+                "engines_pagerank_logged": ("k1_gather", "k2_reduce"),
+                "engines_sssp_grid": ("k1_gather_weighted", "k2_reduce_min"),
+                "ooc_pagerank": ("k1_gather", "k2_reduce"),
+                "ooc_wcc": ("k1_gather", "k2_reduce_min"),
+                "ooc_sssp": ("k1_gather_weighted", "k2_reduce_min")}
 WIKI = np.array([(1, 2), (2, 1), (4, 0), (4, 1), (5, 4), (5, 1), (5, 6),
                  (6, 1), (6, 5), (7, 1), (7, 5), (8, 1), (8, 5), (9, 1),
                  (9, 5), (10, 1), (10, 5), (11, 5), (12, 5)])
@@ -136,16 +168,6 @@ def time_ms(fn, reps=20):
     return start.elapsed_time(end) / reps
 
 
-def best_of_3(fn):
-    """Host seconds of each of 3 synchronized calls, and the last result."""
-    runs = []
-    for _ in range(3):
-        _sync()
-        t0 = time.perf_counter()
-        res = fn()
-        _sync()
-        runs.append(time.perf_counter() - t0)
-    return runs, res
 
 
 def bits_diff(a, b):
@@ -285,10 +307,11 @@ def small_graph_checks(gtt, dev):
               f"by {err_ref}")
         check(err_cpu <= 1e-6, f"{name}: card and CPU scores differ by "
               f"{err_cpu}")
+        plan = gtt.WccConfig(engine="plan")
         card_w = gtt.wcc(gtt.build_directed(src, dst, node_count=n,
-                                            device=dev))
+                                            device=dev), plan)
         host_w = gtt.wcc(gtt.build_directed(src, dst, node_count=n,
-                                            device="cpu"))
+                                            device="cpu"), plan)
         labels = card_w.components_np()
         check(np.array_equal(labels, host_w.components_np())
               and card_w.ran_iterations == host_w.ran_iterations,
@@ -415,7 +438,7 @@ def wcc_phase(gtt, kernels, graph, src, dst, n):
     build_s = time.perf_counter() - t0
     res, launches = drive(kernels, "wcc", lambda: gtt.wcc(graph),
                           lambda r: r.ran_iterations)
-    runs, res = best_of_3(lambda: gtt.wcc(graph))
+    runs, res = timed_runs(lambda: gtt.wcc(graph))
     labels = res.components
     check(tuple(labels.shape) == (n,) and labels.dtype == torch.int32,
           f"labels have shape {tuple(labels.shape)} {labels.dtype}")
@@ -432,7 +455,7 @@ def wcc_phase(gtt, kernels, graph, src, dst, n):
           "components": int(np.unique(want).size),
           "host_check_s": time.perf_counter() - t0,
           "max_in_degree": int(torch.diff(sym.plan.indptr).max())})
-    return sym, launches, labels
+    return sym, launches, labels, res.ran_iterations
 
 
 def sssp_phase(gtt, kernels, src, dst, n, dev):
@@ -445,7 +468,7 @@ def sssp_phase(gtt, kernels, src, dst, n, dev):
 
     from graph_tpu_torch.algos.sssp import INF, _weighted_engine
 
-    w = np.random.default_rng(3).random(src.size).astype(np.float32) * 4
+    w = sssp_weights(src.size)
     t0 = time.perf_counter()
     graph = gtt.build_directed(src, dst, w, node_count=n, device=dev)
     _sync()
@@ -460,7 +483,7 @@ def sssp_phase(gtt, kernels, src, dst, n, dev):
     res, launches = drive(kernels, "sssp",
                           lambda: gtt.delta_stepping(graph, cfg),
                           lambda r: r.ran_iterations)
-    runs, res = best_of_3(lambda: gtt.delta_stepping(graph, cfg))
+    runs, res = timed_runs(lambda: gtt.delta_stepping(graph, cfg))
     dist_t = res.distances
     check(tuple(dist_t.shape) == (n,) and dist_t.dtype == torch.float32,
           f"distances have shape {tuple(dist_t.shape)} {dist_t.dtype}")
@@ -498,7 +521,12 @@ def sssp_phase(gtt, kernels, src, dst, n, dev):
           "launches": launches, "reached": int(reached.sum()),
           "max_distance": float(dist[reached].max()),
           "host_check_s": time.perf_counter() - t0})
-    return eng, res, launches
+    return graph, start, eng, res, launches
+
+
+def sssp_weights(m):
+    """bench.py's SSSP weights (``bench.py:262``)."""
+    return np.random.default_rng(3).random(m).astype(np.float32) * 4
 
 
 def edge_text(src, dst):
@@ -681,9 +709,535 @@ def relabel_invariants(g, rel):
     return {"max_degree": int(deg[0]), "tied_pairs": int(tie.sum())}
 
 
-def launches_of(path, builder):
-    """A path's launches and its builder run's, added, kernel by kernel."""
-    return {name: path[name] + builder[name] for name in path}
+def launches_of(*runs):
+    """The launches of several runs of a path, added, kernel by kernel."""
+    return {name: sum(r[name] for r in runs) for name in runs[0]}
+
+
+def timed_runs(fn, reps=3):
+    """Host seconds of each of ``reps`` synchronized calls, and the last
+    result."""
+    runs = []
+    for _ in range(reps):
+        _sync()
+        t0 = time.perf_counter()
+        res = fn()
+        _sync()
+        runs.append(time.perf_counter() - t0)
+    return runs, res
+
+
+def host_triangles(g):
+    """Distinct triangles of a DEDUPLICATED graph on the host (scipy): U
+    is the adjacency above the diagonal, and each triangle i < j < k is
+    one product U[i,j] U[j,k] under U[i,k]."""
+    import scipy.sparse as sp
+
+    s, t = g.csr.sources.cpu().numpy(), g.csr.targets.cpu().numpy()
+    up = s < t
+    n = g.node_count
+    u = sp.csr_matrix((np.ones(int(up.sum()), np.int64), (s[up], t[up])),
+                      shape=(n, n))
+    return int((u @ u).multiply(u).sum())
+
+
+def host_multiset_triangles(g):
+    """The reference's multiset count on a SORTED graph, on the host:
+    M[u,v] counts the occurrences of v <= u in N(u), B is the distinct
+    adjacency, and the count is the sum of (M @ M) under B."""
+    import scipy.sparse as sp
+
+    s = g.csr.sources.cpu().numpy().astype(np.int64)
+    t = g.csr.targets.cpu().numpy().astype(np.int64)
+    n = g.node_count
+    low = t <= s
+    m = sp.csr_matrix((np.ones(int(low.sum()), np.int64), (s[low], t[low])),
+                      shape=(n, n))  # duplicates add up: occurrences
+    b = sp.csr_matrix((np.ones(s.size, np.int64), (s, t)), shape=(n, n))
+    b.data[:] = 1
+    return int((m @ m).multiply(b).sum())
+
+
+def triangles_phase(gtt, dev, src, dst, n):
+    """Triangle count at scale 22 on the card (distinct, DEDUPLICATED),
+    unchanged by the degree relabel; the two join designs timed on one
+    full slab; at scale 16 the distinct count against scipy (and the
+    sort join's count against the lookup join's) and the multiset count
+    (SORTED, relabeled) against a host model.  Fails unless the native
+    orientation library loaded."""
+    import torch
+
+    from graph_tpu_torch.algos import triangle_count as tc
+    from graph_tpu_torch.generate import host_rmat
+    from graph_tpu_torch.native import host_csr
+
+    out = {}
+    t0 = time.perf_counter()
+    ug = gtt.build_undirected(src, dst, node_count=n, device=dev,
+                              layout=gtt.CsrLayout.DEDUPLICATED)
+    _sync()
+    out["build_undirected_s"] = time.perf_counter() - t0
+    # keep the host preparation the count makes, for the per-slab timing
+    prepare, kept = tc._prepare_distinct, []
+    tc._prepare_distinct = lambda *a: kept.append(prepare(*a)) or kept[-1]
+    try:
+        _sync()
+        t0 = time.perf_counter()
+        res = gtt.global_triangle_count(ug)
+        _sync()
+        out["count_s"] = time.perf_counter() - t0
+    finally:
+        tc._prepare_distinct = prepare
+    check(host_csr.load_error() is None,
+          f"triangles: the native orientation did not load: "
+          f"{host_csr.load_error()}")
+    check(res.triangles > 0, f"triangles: counted {res.triangles}")
+    out.update(triangles=res.triangles, micros=res.micros, **res.phases)
+    out["wedges_per_s_on_card"] = res.phases["wedges"] / res.phases["join_s"]
+
+    # check 1: the degree relabel keeps the count
+    rel = gtt.make_degree_ordered(ug)
+    res_rel = gtt.global_triangle_count(rel)
+    check(res_rel.triangles == res.triangles,
+          f"triangles: {res_rel.triangles} after make_degree_ordered, "
+          f"{res.triangles} before")
+    out["relabeled"] = {"triangles": res_rel.triangles, **res_rel.phases}
+    del rel, ug
+    free_device()
+
+    # the two joins on one full slab of the 64-wide class, same wedges
+    mats, _, a, b = kept[0]
+    mat = torch.from_numpy(mats[64]).to(dev)
+    rows = max(1, tc.SLAB // (64 * 63 // 2))
+    v, w = tc._emit_intra(mat[:rows], 64)
+    keys = tc._edge_keys(a, b, dev)
+    ev, ew = (torch.from_numpy(x).to(dev) for x in tc._pad_edge_keys(a, b))
+    lookup = int(tc._lookup_count(v, w, keys))
+    check(int(tc._join_count(v, w, ev, ew)) == lookup,
+          "triangles: the sort join and the lookup join disagree on a slab")
+    out["one_slab"] = {
+        "wedge_slots": v.numel(), "matches": lookup,
+        "lookup_ms": time_ms(lambda: tc._lookup_count(v, w, keys), reps=5),
+        "sort_ms": time_ms(lambda: tc._join_count(v, w, ev, ew), reps=3),
+        "edge_keys_sort_ms": time_ms(lambda: tc._edge_keys(a, b, dev),
+                                     reps=3)}
+    del mats, kept, mat, v, w, keys, ev, ew
+    free_device()
+
+    # checks 2 and 3 at TC_CHECK_SCALE (the multiset count's wedges)
+    cn = 1 << TC_CHECK_SCALE
+    c_src, c_dst = host_rmat(TC_CHECK_SCALE, seed=42)
+    cg = gtt.build_undirected(c_src, c_dst, node_count=cn, device=dev,
+                               layout=gtt.CsrLayout.DEDUPLICATED)
+    distinct = gtt.global_triangle_count(cg)
+    t0 = time.perf_counter()
+    want = host_triangles(cg)
+    host_s = time.perf_counter() - t0
+    check(distinct.triangles == want,
+          f"triangles at scale {TC_CHECK_SCALE}: {distinct.triangles}, "
+          f"scipy {want}")
+    prep = tc._prepare_distinct(cg, {})
+    joins = {}
+    for join in tc.JOINS:
+        _sync()
+        t0 = time.perf_counter()
+        count = tc._run_join(*prep, device=dev, join=join)
+        joins[join] = {"count": count, "s": time.perf_counter() - t0}
+        check(count == want, f"triangles: the {join} join counts "
+              f"{count}, scipy {want}")
+    gs = gtt.make_degree_ordered(gtt.build_undirected(
+        c_src, c_dst, node_count=cn, device=dev,
+        layout=gtt.CsrLayout.SORTED))
+    cm = gtt.global_triangle_count(gs)
+    t0 = time.perf_counter()
+    want_m = host_multiset_triangles(gs)
+    host_m_s = time.perf_counter() - t0
+    check(cm.triangles == want_m, f"multiset triangles: {cm.triangles}, "
+          f"host model {want_m}")
+    out["host_checks"] = {
+        "scale": TC_CHECK_SCALE,
+        "distinct": {"triangles": distinct.triangles, "host_check_s": host_s,
+                     "joins": joins, **distinct.phases},
+        "multiset": {"triangles": cm.triangles, "host_check_s": host_m_s,
+                     "why_not_scale22": "scale 22 has about 51e9 "
+                                        "multiset wedges", **cm.phases}}
+    emit({"phase": "triangles", "scale": SCALE, "n": n, "m": int(src.size),
+          **out})
+    return out
+
+
+def grid_edges(side):
+    """bench.py's SSSP grid (bench.py:293-311): 4-neighbour, both
+    directions, weights ``default_rng(9).uniform(0.1, 4.0)``."""
+    gn = side * side
+    ii = np.arange(gn, dtype=np.int64)
+    right = ii[ii % side != side - 1]
+    down = ii[ii < gn - side]
+    src = np.concatenate([right, right + 1, down, down + side])
+    dst = np.concatenate([right + 1, right, down + side, down])
+    w = np.random.default_rng(9).uniform(0.1, 4.0, src.size).astype(
+        np.float32)
+    return src, dst, w, gn
+
+
+def f64_jacobi(graph, iters, damping):
+    """PageRank in float64 on the graph's device with ``index_add_``: the
+    plain reference at scale 22 (numpy's takes seconds an iteration)."""
+    import torch
+
+    src = graph.csr_out.sources.long()
+    dst = graph.csr_out.targets.long()
+    n = graph.node_count
+    outdeg = graph.out_degrees().double()
+    inv = torch.where(outdeg > 0, 1.0 / outdeg.clamp(min=1.0), 0.0)
+    scores = torch.full((n,), 1.0 / n, dtype=torch.float64,
+                        device=src.device)
+    for _ in range(iters):
+        y = torch.zeros_like(scores).index_add_(0, dst, (scores * inv)[src])
+        scores = (1.0 - damping) / n + damping * y
+    return scores.cpu().numpy()
+
+
+def engine_runs(fn, reps):
+    """Seconds of ``reps`` runs and the result's reads and iterations."""
+    runs, res = timed_runs(fn, reps)
+    return {"run_s": runs, "best_s": min(runs),
+            "iterations": res.ran_iterations,
+            "host_reads": res.host_reads}, res
+
+
+def engines_phase(gtt, kernels, dev, graph, wgraph, start, pr_res,
+                  wcc_labels, sssp_res):
+    """The segment-op engines on the scale-22 graphs, each held to the
+    plan path's result; the logged plan PageRank; SSSP on bench.py's
+    grid with all three engines; and each engine's seconds and host
+    reads on RMAT 12, RMAT 22 and the grid, from which ``auto`` is
+    decided."""
+    import torch
+
+    from graph_tpu_torch.generate import host_rmat
+
+    out = {"pagerank": {}, "wcc": {}, "sssp_rmat": {}, "sssp_grid": {}}
+    launches = {}
+    cfg = {"max_iterations": ITERS, "tolerance": 0.0}
+    # a float64 Jacobi (index_add_ in f64): scatter's f32 sums are held to
+    # it; the int32 quanta of plan and cumsum are not (their rounding adds
+    # up coherently where many in-neighbours send the same value)
+    f64 = f64_jacobi(graph, ITERS, 0.85)
+    out["pagerank"]["plan_max_abs_vs_f64"] = float(
+        np.abs(pr_res.scores_np() - f64).max())
+    for engine in ("cumsum", "scatter"):
+        out["pagerank"][engine], res = engine_runs(lambda: gtt.page_rank(
+            graph, gtt.PageRankConfig(engine=engine, **cfg)), 3)
+        diff = float((res.scores - pr_res.scores).abs().max())
+        delta = np.abs(res.scores_np() - f64)
+        diff64 = float(delta.max())
+        # scatter's limit per node, scaled to its score (1/n is 2.4e-7 at
+        # scale 22): f32 sums in any order stay far inside 1e-4 of each
+        over = delta - (SCATTER_RTOL * np.abs(f64) + SCATTER_ATOL)
+        out["pagerank"][engine].update(
+            max_abs_vs_f64=diff64, max_abs_vs_plan=diff,
+            max_rel_vs_f64=float((delta / f64).max()),
+            f64_at_max_abs=float(f64[delta.argmax()]),
+            nodes_over_limit=int((over > 0).sum()))
+        check(res.ran_iterations == ITERS, f"{engine}: {res.ran_iterations}"
+              " iterations")
+        if engine == "cumsum":
+            check(torch.equal(res.scores, pr_res.scores),
+                  f"PageRank cumsum differs from the plan path by {diff}")
+        else:
+            check(not (over > 0).any(), f"PageRank scatter: "
+                  f"{int((over > 0).sum())} nodes off the float64 Jacobi by "
+                  f"more than {SCATTER_RTOL}·|f64| + {SCATTER_ATOL} "
+                  f"(max {diff64}; off the plan by {diff})")
+    del f64, delta, over
+    res, launches["pagerank_logged"] = drive(
+        kernels, "engines_pagerank_logged", lambda: gtt.page_rank(
+            graph, gtt.PageRankConfig(engine="plan", log_progress=True,
+                                      **cfg)), lambda r: r.ran_iterations)
+    check(torch.equal(res.scores, pr_res.scores) and res.host_reads == ITERS,
+          f"logged PageRank: {res.host_reads} host reads, scores equal "
+          f"{torch.equal(res.scores, pr_res.scores)}")
+    out["pagerank"]["plan_logged"] = {"iterations": res.ran_iterations,
+                                      "host_reads": res.host_reads,
+                                      "run_s": res.micros / 1e6}
+    out["pagerank"]["plan"], _ = engine_runs(lambda: gtt.page_rank(
+        graph, gtt.PageRankConfig(engine="plan", **cfg)), 3)
+
+    for engine in ("xla", "plan"):
+        out["wcc"][engine], res = engine_runs(
+            lambda: gtt.wcc(graph, gtt.WccConfig(engine=engine)), 3)
+        check(torch.equal(res.components, wcc_labels),
+              f"WCC {engine}: labels differ from the wcc phase's")
+    del res
+
+    # SSSP on the RMAT from the sssp phase's start, delta 3.0; the
+    # frontier engine refuses its max out-degree
+    def sssp(g, start_node, delta, engine):
+        return lambda: gtt.delta_stepping(g, gtt.DeltaSteppingConfig(
+            start_node, delta, engine=engine))
+
+    out["sssp_rmat"]["xla"], res = engine_runs(
+        sssp(wgraph, start, 3.0, "xla"), 2)
+    check(torch.equal(res.distances, sssp_res.distances),
+          "SSSP xla: distances differ from the sssp phase's (plan)")
+    out["sssp_rmat"]["plan"], _ = engine_runs(
+        sssp(wgraph, start, 3.0, "plan"), 3)
+    out["sssp_rmat"]["frontier"] = frontier_runs(gtt, wgraph, start, 3.0)
+
+    # bench.py's grid: plan, frontier and xla reach the same distances
+    gsrc, gdst, gw, gn = grid_edges(GRID_SIDE)
+    gg = gtt.build_directed(gsrc, gdst, gw, node_count=gn, device=dev)
+    plan_res, launches["sssp_grid_plan"] = drive(
+        kernels, "engines_sssp_grid", sssp(gg, 0, 2.0, "plan"),
+        lambda r: r.ran_iterations)
+    out["sssp_grid"]["plan"], _ = engine_runs(sssp(gg, 0, 2.0, "plan"), 2)
+    for engine in ("frontier", "xla"):
+        out["sssp_grid"][engine], res = engine_runs(
+            sssp(gg, 0, 2.0, engine), 2)
+        check(torch.equal(res.distances, plan_res.distances),
+              f"grid SSSP: {engine} differs from plan")
+    dist = plan_res.distances
+    out["sssp_grid"].update(
+        side=GRID_SIDE, n=gn, m=int(gsrc.size), delta=2.0,
+        max_distance=float(dist.max()),
+        corner_distance=float(dist[gn - 1]))
+    del gg, res, plan_res, dist
+
+    # smaller RMATs (seed 3), down to where launches, not bytes, set the
+    # time: where each algorithm's engines cross over
+    for scale in SWEEP_SCALES:
+        s_, d_ = host_rmat(scale, seed=3)
+        g_ = gtt.build_directed(s_, d_, sssp_weights(s_.size),
+                                node_count=1 << scale, device=dev)
+        hub = int(np.bincount(s_).argmax())
+        rows = {"pagerank": {}, "wcc": {}, "sssp": {}}
+        for engine in ("plan", "cumsum", "scatter"):
+            rows["pagerank"][engine], _ = engine_runs(
+                lambda: gtt.page_rank(g_, gtt.PageRankConfig(
+                    engine=engine, **cfg)), 3)
+        for engine in ("plan", "xla"):
+            rows["wcc"][engine], _ = engine_runs(
+                lambda: gtt.wcc(g_, gtt.WccConfig(engine=engine)), 3)
+            rows["sssp"][engine], _ = engine_runs(
+                sssp(g_, hub, 3.0, engine), 3)
+        rows["sssp"]["frontier"] = frontier_runs(gtt, g_, hub, 3.0)
+        out.update({f"rmat{scale}_{name}": {"m": int(s_.size), **r}
+                    for name, r in rows.items()})
+    out["fastest"] = {
+        table: min((k for k, v in rows.items()
+                    if isinstance(v, dict) and "best_s" in v),
+                   key=lambda k: rows[k]["best_s"])
+        for table, rows in out.items()}
+    emit({"phase": "engines", "scale": SCALE, **out})
+    return out, launches
+
+
+def frontier_runs(gtt, g, start, delta, reps=3):
+    """The frontier engine's runs where its padded adjacency, (n+1) x the
+    max out-degree, stays below 2**31 slots; else its refusal."""
+    from graph_tpu_torch.algos.sssp import _max_out_degree
+
+    dmax = _max_out_degree(g)
+    cfg = gtt.DeltaSteppingConfig(start, delta, engine="frontier")
+    if (g.node_count + 1) * max(dmax, 1) < (1 << 31):
+        runs, _ = engine_runs(lambda: gtt.delta_stepping(g, cfg), reps)
+        return {**runs, "max_out_degree": dmax}
+    try:
+        gtt.delta_stepping(g, cfg)
+    except ValueError as exc:  # the engine's own limit, named
+        check("2^31" in str(exc), f"frontier: unexpected refusal {exc}")
+        return {"refused": str(exc), "max_out_degree": dmax}
+    raise SmokeFailure("frontier ran past its adjacency limit")
+
+
+def copy_yardstick_ms(nbytes, dev):
+    """A plain copy of ``nbytes`` from pinned host memory to the card,
+    timed by CUDA events: the rate the out-of-core engine streams at."""
+    import torch
+
+    host = torch.empty(nbytes, dtype=torch.uint8, pin_memory=True)
+    card = torch.empty(nbytes, dtype=torch.uint8, device=dev)
+    return time_ms(lambda: card.copy_(host, non_blocking=True), reps=5)
+
+
+def drive_ooc(kernels, path, fn, method, rounds):
+    """Drive one out-of-core driver as :func:`drive` does, counting its
+    calls of the engine's ``method`` and the slabs each call streams:
+    each kernel of the path must launch once per slab and call, and the
+    calls must be ``rounds``, the in-core phase's."""
+    from graph_tpu_torch.engine.ooc import OocEdgeEngine
+
+    real = getattr(OocEdgeEngine, method)
+    slabs = []
+
+    def counted(self, *args, **kwargs):
+        slabs.append(len(self.slabs))
+        return real(self, *args, **kwargs)
+
+    setattr(OocEdgeEngine, method, counted)
+    try:
+        res, launches = drive(kernels, path, fn, lambda r: sum(slabs))
+    finally:
+        setattr(OocEdgeEngine, method, real)
+    check(len(slabs) == rounds, f"{path}: {len(slabs)} calls of {method}, "
+          f"{rounds} rounds in core")
+    return res, launches, sum(slabs)
+
+
+def ooc_phase(gtt, kernels, dev, errs, src, dst, w, n, start, x_host,
+              sym, pr_res, wcc_labels, wcc_rounds, sssp_res):
+    """The out-of-core engine at scale 22 with 8 slabs: one spmv,
+    smin_int and relax each bit-exact against a resident engine on the
+    same edges; K1 and K2 held to their plain versions on a slab; the
+    three drivers against the pagerank, wcc and sssp phases; ms per call,
+    bytes per call and the rate, beside a plain pinned copy of the same
+    bytes; and the card's memory."""
+    import torch
+
+    from graph_tpu_torch.algos.sssp import INF as F32_MAX
+    from graph_tpu_torch.engine import ooc
+
+    k = kernels
+    slabs = OOC_SLABS
+    out, launches = {}, {}
+    torch.cuda.reset_peak_memory_stats()
+    peaks = []
+    t0 = time.perf_counter()
+    eng = ooc.OocEdgeEngine.build(src, dst, n, n_slabs=slabs, device=dev)
+    out["build_s"] = time.perf_counter() - t0
+    check(2 <= len(eng.slabs) <= slabs
+          and eng.slabs[0].plan.slot_src.is_pinned(),
+          f"ooc: {len(eng.slabs)} slabs, pinned "
+          f"{eng.slabs[0].plan.slot_src.is_pinned()}")
+    out["slabs"] = [{"d0": sl.d0, "rows": sl.rows, "m": sl.plan.m}
+                    for sl in eng.slabs]
+    resident = gtt.EdgeEngine.build(src, dst, n, device=dev)
+    y = eng.spmv(x_host)
+    check(torch.equal(y, resident.spmv(x_host.to(dev)).cpu()),
+          "ooc spmv differs from the resident engine's")
+    # K1 and K2 on the first slab, against their plain versions
+    a = [t.to(dev) for t in eng.slabs[0].arrays()]
+    xq = torch.round(x_host.to(dev) * float(1 << 30)).to(torch.int32)
+    contrib = k.k1_gather_plain(xq, a[0])
+    hold(errs, "k1_gather", k.k1_gather(xq, a[0]), contrib)
+    hold(errs, "k2_reduce", k.k2_reduce(contrib, a[1], a[2]),
+         k.k2_reduce_plain(contrib, a[1]))
+    del resident, a, xq, contrib
+    free_device()
+
+    # one call's time and bytes, and the card memory it takes
+    runs, _ = timed_runs(lambda: eng.spmv(x_host), 3)
+    before = torch.cuda.memory_allocated()
+    peaks.append(torch.cuda.max_memory_allocated())
+    torch.cuda.reset_peak_memory_stats()
+    eng.spmv(x_host)
+    call_peak = torch.cuda.max_memory_allocated() - before
+    # two buffers, each as large as the largest slab's arrays; K1's output
+    # for a slab; x, its quanta, y as int32 and f32, and temporaries
+    arrays = [sl.arrays() for sl in eng.slabs]
+    buffers = 2 * sum(max(a[i].numel() for a in arrays)
+                      * arrays[0][i].element_size()
+                      for i in range(len(arrays[0])))
+    transient = max(sl.plan.m for sl in eng.slabs) * 4 + 6 * 4 * n
+    check(call_peak <= buffers + transient + (4 << 20),
+          f"ooc: one call took {call_peak} bytes of the card; two slab "
+          f"buffers are {buffers}, the rest {transient}")
+    nbytes = eng.bytes_per_call
+    best = min(runs)
+    yard = copy_yardstick_ms(nbytes, dev)
+    out["spmv"] = {"run_s": runs, "ms_per_call": best * 1e3,
+                   "bytes_per_call": nbytes,
+                   "vector_bytes_per_call": 2 * 4 * n,
+                   "gb_per_s": nbytes / best / 1e9,
+                   "pinned_copy_ms": yard,
+                   "pinned_copy_gb_per_s": nbytes / yard / 1e6,
+                   "share_of_copy_rate": yard / (best * 1e3),
+                   "two_buffers_bytes": buffers,
+                   "transient_bytes": transient,
+                   "call_peak_bytes": call_peak}
+    del eng
+    free_device()
+
+    # smin_int on the symmetrized edges, against the wcc phase's engine
+    sym_src = np.concatenate([src, dst])
+    sym_dst = np.concatenate([dst, src])
+    t0 = time.perf_counter()
+    seng = ooc.OocEdgeEngine.build(sym_src, sym_dst, n, n_slabs=slabs,
+                                   device=dev)
+    out["sym_build_s"] = time.perf_counter() - t0
+    labels = torch.arange(n, dtype=torch.int32)
+    check(torch.equal(seng.smin_int(labels),
+                      sym.smin_int(labels.to(dev)).cpu()),
+          "ooc smin_int differs from the resident engine's")
+    a = [t.to(dev) for t in seng.slabs[0].arrays()]
+    c = k.k1_gather_plain(labels.to(dev), a[0])
+    hold(errs, "k2_reduce_min", k.k2_reduce_min(c, a[1], "imin", a[2]),
+         k.k2_reduce_min_plain(c, a[1], "imin"))
+    out["smin_int"] = {"ms_per_call": min(timed_runs(
+        lambda: seng.smin_int(labels), 2)[0]) * 1e3,
+        "bytes_per_call": seng.bytes_per_call}
+    del seng, a, c, sym_src, sym_dst
+    free_device()
+
+    # relax on the weighted edges, against a resident engine (no relabel)
+    weng = ooc.OocEdgeEngine.build(src, dst, n, values=w, n_slabs=slabs,
+                                   device=dev)
+    resident = gtt.EdgeEngine.build(src, dst, n, values=w, device=dev)
+    dist = sssp_res.distances.clamp(max=k.INF).cpu()
+    check(torch.equal(weng.relax(dist), resident.relax(dist.to(dev)).cpu()),
+          "ooc relax differs from the resident engine's")
+    a = [t.to(dev) for t in weng.slabs[0].arrays()]
+    c = k.k1_gather_weighted_plain(dist.to(dev), a[0], a[3], "add", False)
+    hold(errs, "k1_gather_weighted",
+         k.k1_gather_weighted(dist.to(dev), a[0], a[3], "add", False), c)
+    hold(errs, "k2_reduce_min",
+         k.k2_reduce_min(c.view(torch.int32), a[1], "min", a[2]),
+         k.k2_reduce_min_plain(c.view(torch.int32), a[1], "min"))
+    out["relax"] = {"ms_per_call": min(timed_runs(
+        lambda: weng.relax(dist), 2)[0]) * 1e3,
+        "bytes_per_call": weng.bytes_per_call}
+    del weng, resident, a, c
+    free_device()
+
+    # the three drivers, each building its own engine, against the
+    # resident phases; each kernel launches once per slab and round, in
+    # as many rounds as the in-core phase ran
+    t0 = time.perf_counter()
+    (scores, it, err), launches["pagerank"], streamed = drive_ooc(
+        k, "ooc_pagerank", lambda: ooc.page_rank_ooc(
+            src, dst, n, max_iterations=ITERS, tolerance=0.0,
+            n_slabs=slabs, device=dev), "spmv", ITERS)
+    # the in-core loop and arithmetic on the host: the same bits
+    diff = float((scores - pr_res.scores.cpu()).abs().max())
+    check(it == ITERS and torch.equal(scores, pr_res.scores.cpu()),
+          f"page_rank_ooc: {it} iterations, {diff} off the pagerank phase")
+    out["page_rank_ooc"] = {
+        "s": time.perf_counter() - t0, "iterations": it, "error": err,
+        "max_abs_vs_pagerank": diff, "slab_calls": streamed,
+        "launches": launches["pagerank"]}
+    t0 = time.perf_counter()
+    comp, launches["wcc"], streamed = drive_ooc(
+        k, "ooc_wcc", lambda: ooc.wcc_ooc(src, dst, n, n_slabs=slabs,
+                                          device=dev), "smin_int", wcc_rounds)
+    check(torch.equal(comp, wcc_labels.cpu()),
+          "wcc_ooc labels differ from the wcc phase's")
+    out["wcc_ooc"] = {"s": time.perf_counter() - t0, "rounds": wcc_rounds,
+                      "slab_calls": streamed, "launches": launches["wcc"]}
+    t0 = time.perf_counter()
+    dist, launches["sssp"], streamed = drive_ooc(
+        k, "ooc_sssp", lambda: ooc.sssp_ooc(src, dst, w, n, start,
+                                            n_slabs=slabs, device=dev),
+        "relax", sssp_res.ran_iterations)
+    dist = dist.masked_fill(dist >= k.INF, float(F32_MAX))
+    check(torch.equal(dist, sssp_res.distances.cpu()),
+          "sssp_ooc distances differ from the sssp phase's")
+    out["sssp_ooc"] = {"s": time.perf_counter() - t0,
+                       "rounds": sssp_res.ran_iterations,
+                       "slab_calls": streamed, "launches": launches["sssp"]}
+    out["peak_mem_gb"] = max(peaks + [torch.cuda.max_memory_allocated()]) / 1e9
+    emit({"phase": "ooc", "scale": SCALE, "n_slabs": slabs, **out})
+    return out, launches
 
 
 def free_device():
@@ -815,7 +1369,7 @@ def run():
                              tolerance=0.0)
     res, pr_launches = drive(k, "pagerank", lambda: gtt.page_rank(graph, cfg),
                              lambda r: r.ran_iterations)
-    runs, res = best_of_3(lambda: gtt.page_rank(graph, cfg))
+    runs, res = timed_runs(lambda: gtt.page_rank(graph, cfg))
     best = min(runs)
     scores = res.scores
     check(res.ran_iterations == ITERS, f"ran {res.ran_iterations} iterations")
@@ -836,20 +1390,44 @@ def run():
           "launches": pr_launches})
 
     # 4. the WCC and SSSP paths, on the same RMAT edges
-    sym, wcc_launches, wcc_labels = wcc_phase(gtt, k, graph, src, dst, n)
-    weng, sssp_res, sssp_launches = sssp_phase(gtt, k, src, dst, n, dev)
+    sym, wcc_launches, wcc_labels, wcc_rounds = wcc_phase(
+        gtt, k, graph, src, dst, n)
+    wgraph, start, weng, sssp_res, sssp_launches = sssp_phase(
+        gtt, k, src, dst, n, dev)
 
     # 5. the same graph from files, through the builder
     bld = builder_phase(gtt, k, dev, card, src, dst, n, graph, cfg, res,
                         wcc_labels)
-    del wcc_labels
     emit({"phase": "memory",
           "peak_mem_gb": torch.cuda.max_memory_allocated() / 1e9})
 
-    # 6. each kernel at its path's shapes: exactness, then times.  The
-    # pagerank and wcc rows count the builder phase's runs of those paths.
-    pr_launches = launches_of(pr_launches, bld["pagerank_launches"])
-    wcc_launches = launches_of(wcc_launches, bld["wcc_launches"])
+    # 6. triangle count; the segment-op engines; the out-of-core engine
+    triangles_phase(gtt, dev, src, dst, n)
+    _, eng_launches = engines_phase(gtt, k, dev, graph, wgraph, start, res,
+                                    wcc_labels, sssp_res)
+    del wgraph
+    _, ooc_launches = ooc_phase(
+        gtt, k, dev, errs, src, dst, sssp_weights(m), n, start, x_t.cpu(),
+        sym, res, wcc_labels, wcc_rounds, sssp_res)
+    del wcc_labels
+    free_device()
+
+    # 7. each kernel at its path's shapes: exactness, then times.  Each
+    # row counts every run of its path: the phase's own, the builder's,
+    # the engines phase's plan runs and the out-of-core drivers'.
+    by_path = {
+        "pagerank": {"pagerank": pr_launches,
+                     "builder": bld["pagerank_launches"],
+                     "engines (log_progress)": eng_launches["pagerank_logged"],
+                     "ooc (page_rank_ooc)": ooc_launches["pagerank"]},
+        "wcc": {"wcc": wcc_launches, "builder": bld["wcc_launches"],
+                "ooc (wcc_ooc)": ooc_launches["wcc"]},
+        "sssp": {"sssp": sssp_launches,
+                 "engines (grid, plan)": eng_launches["sssp_grid_plan"],
+                 "ooc (sssp_ooc)": ooc_launches["sssp"]}}
+    pr_launches = launches_of(*by_path["pagerank"].values())
+    wcc_launches = launches_of(*by_path["wcc"].values())
+    sssp_launches = launches_of(*by_path["sssp"].values())
     table = []
     plan, h, cuts = eng.plan, eng.window, eng.k2_cuts
     xq = torch.round(eng.to_internal(x_t) * float(1 << 30)).to(torch.int32)
@@ -952,6 +1530,9 @@ def run():
     del xq
     for t in table:  # the exactness of every kernel, edge cases included
         t["max_abs_err"] = errs[t["name"]]
+        t["launches_by_path"] = {
+            path: runs[t["name"]]
+            for path, runs in by_path[t["path"].split()[0]].items()}
 
     iter_ms = best / ITERS * 1e3
     emit({"phase": "kernel_detail",

@@ -9,7 +9,9 @@ undirected) built on the device or the host with their transforms
 (degree relabel, ``to_undirected``, degree partitioning) and mutable
 adjacency-list graphs, the EdgeEngine with its hand-written CUDA kernels
 K1 and K2 and its whole semiring surface (sums, mins, weighted
-combines), and the plan-engine paths of PageRank, WCC and SSSP.
+combines), the out-of-core engine that streams slab plans from pinned
+host memory, PageRank, WCC and SSSP on every engine (the plan engine and
+the segment-op engines), and triangle counting.
 
 Entry points run on the card unless the caller passes ``device="cpu"``,
 and raise when no card is present and no device is given.
@@ -17,10 +19,11 @@ and raise when no card is present and no device is given.
 
 from graph_tpu_torch.algos import (
     DeltaSteppingConfig, PageRankConfig, PageRankResult, SsspResult,
-    WccConfig, WccResult, delta_stepping, page_rank, wcc, wcc_afforest,
-    wcc_afforest_dss, wcc_baseline, wcc_components)
+    TriangleCountResult, WccConfig, WccResult, delta_stepping,
+    global_triangle_count, page_rank, page_rank_reference, wcc,
+    wcc_afforest, wcc_afforest_dss, wcc_baseline, wcc_components)
 from graph_tpu_torch.builder import GraphBuilder
-from graph_tpu_torch.engine import EdgeEngine, EdgePlan
+from graph_tpu_torch.engine import EdgeEngine, EdgePlan, OocEdgeEngine
 from graph_tpu_torch.errors import (
     GraphError, InvalidIdType, InvalidNodeValues, InvalidPartitioning)
 from graph_tpu_torch.graph import (
@@ -48,9 +51,11 @@ __all__ = [
     "InvalidIdType",
     "InvalidNodeValues",
     "InvalidPartitioning",
+    "OocEdgeEngine",
     "PageRankConfig",
     "PageRankResult",
     "SsspResult",
+    "TriangleCountResult",
     "UndirectedCsrGraph",
     "WccConfig",
     "WccResult",
@@ -61,11 +66,13 @@ __all__ = [
     "degree_order_permutation",
     "degree_partition",
     "delta_stepping",
+    "global_triangle_count",
     "graph500_path",
     "load_graph",
     "load_graph500",
     "make_degree_ordered",
     "page_rank",
+    "page_rank_reference",
     "save_graph",
     "to_undirected",
     "wcc",

@@ -1,45 +1,68 @@
-"""PageRank as a pull-mode SpMV iteration on the EdgeEngine.
+"""PageRank as a pull-mode SpMV iteration.
 
 Counterpart of ``graph_tpu.algos.pagerank`` (reference analog:
 ``page_rank``, crates/algos/src/page_rank.rs:58-168; defaults
 max_iterations=20, tolerance=1e-4, damping=0.85).  Strict Jacobi:
-``scores = (1-d)/n + d * spmv(scores / outdeg)`` with an L1 residual,
-run in the plan's internal node order and permuted back once at the end.
+``scores = (1-d)/n + d * spmv(scores / outdeg)`` with an L1 residual.
+Three engines compute the spmv:
 
-Only the plan engine is ported.  The loop stops on the JAX
-``while_loop``'s condition, ``it < max_iterations and err >= tolerance``;
-with ``tolerance <= 0`` the residual cannot stop it, so the host reads
-the residual once at the end instead of once per iteration.
+* ``"plan"``: the EdgeEngine (K1 + K2), in the plan's internal node
+  order, permuted back once at the end;
+* ``"cumsum"``: a gather over the in-CSR and
+  :func:`~graph_tpu_torch.ops.segment.segment_sum_fixedpoint`, the same
+  int32 quanta as the plan, so the same scores bit for bit;
+* ``"scatter"``: the gather and an f32 ``index_add_``
+  (:func:`~graph_tpu_torch.ops.segment.segment_sum_sorted`), whose order
+  of additions on a card is not fixed.
+
+``"auto"`` runs the plan engine, on the card the fastest of the engines
+that give ``graph_tpu``'s numbers (plan and cumsum) at every size
+chip_smoke times; ``"scatter"`` is faster on small graphs but its f32
+sums are other numbers, so ``"auto"`` never picks it (PERF.md).
+
+The loop stops on the JAX ``while_loop``'s condition, ``it <
+max_iterations and err >= tolerance``; with ``tolerance <= 0`` the
+residual cannot stop it, so the host reads it once at the end instead
+of once per iteration.
+``log_progress=True`` reads and logs it every iteration, on any engine.
 """
 
 from __future__ import annotations
 
 import dataclasses
+import logging
 import time
-from typing import Optional
+from typing import Callable, Optional, Tuple
 
 import numpy as np
 import torch
 
 from graph_tpu_torch.device import synchronize
 from graph_tpu_torch.engine.engine import EdgeEngine, engine_for
-from graph_tpu_torch.errors import not_ported
 from graph_tpu_torch.graph.csr import DirectedCsrGraph
+from graph_tpu_torch.ops.segment import (
+    segment_sum_fixedpoint, segment_sum_sorted)
+
+logger = logging.getLogger(__name__)
+
+ENGINES = ("auto", "plan", "cumsum", "scatter")
 
 
 @dataclasses.dataclass(frozen=True)
 class PageRankConfig:
     """Reference analog: ``PageRankConfig`` (page_rank.rs:17-56).
 
-    ``engine``: "plan" (the EdgeEngine) and "auto" run the ported plan
-    path; "cumsum" and "scatter" are not ported yet.
+    ``engine``: "plan" (the EdgeEngine), "cumsum" (int32 fixed-point
+    prefix sums over the in-CSR), "scatter" (f32 ``index_add_``), or
+    "auto" (the plan engine).
     """
 
     max_iterations: int = 20
     tolerance: float = 1e-4
     damping_factor: float = 0.85
     engine: str = "auto"
-    #: Per-iteration logging like the reference app (not ported yet).
+    #: Log error and time per iteration like the reference app
+    #: (page_rank.rs:98-103), at one host read per iteration.
     log_progress: bool = False
 
     DEFAULT_MAX_ITERATIONS = 20
@@ -56,6 +79,8 @@ class PageRankResult:
     ran_iterations: int
     error: float
     micros: int
+    #: values the host read back from the device during the run
+    host_reads: int = 0
 
     def scores_np(self) -> np.ndarray:
         return self.scores.cpu().numpy()
@@ -70,13 +95,138 @@ def page_rank(graph: DirectedCsrGraph,
     (page_rank.rs:58).
     """
     config = config or PageRankConfig()
-    if config.log_progress:
-        raise not_ported("log_progress=True")
-    if config.engine in ("cumsum", "scatter"):
-        raise not_ported(f"engine={config.engine!r}")
-    if config.engine not in ("auto", "plan"):
+    if config.engine not in ENGINES:
         raise ValueError(f"unknown PageRank engine {config.engine!r}")
-    return _page_rank_plan(graph, config)
+    engine = "plan" if config.engine == "auto" else config.engine
+    return _run(graph, config, engine, config.log_progress)
+
+
+def _inv_outdeg(outdeg: torch.Tensor) -> torch.Tensor:
+    """1 / out-degree in f32, 0 where a node has no out-edge (its score is
+    never gathered; the reference divides by zero, page_rank.rs:75-79)."""
+    outdeg = outdeg.to(torch.float32)
+    return torch.where(outdeg > 0, 1.0 / outdeg.clamp(min=1.0), 0.0)
+
+
+def _jacobi(sums: Callable[[torch.Tensor], torch.Tensor],
+            inv_outdeg: torch.Tensor, max_iterations: int, tolerance: float,
+            damping_factor: float, log: bool = False
+            ) -> Tuple[torch.Tensor, int, float, int]:
+    """The Jacobi loop every engine runs: ``sums(out_scores)`` is its
+    spmv.  Returns (scores, iterations, error, host reads); the residual
+    is read every iteration when it can stop the loop or is logged, else
+    once at the end."""
+    n = inv_outdeg.numel()
+    # f32 scalars as XLA compiles graph_tpu's: a division by the constant
+    # n becomes a product with its f32 reciprocal
+    damping = np.float32(damping_factor)
+    init = np.float32(1.0) / np.float32(n)
+    base = float((np.float32(1.0) - damping) * init)
+    init = float(init)
+    d = float(damping)
+    tolerance = float(np.float32(tolerance))
+    read_each = tolerance > 0 or log
+    scores = torch.full((n,), init, dtype=torch.float32,
+                        device=inv_outdeg.device)
+    out_scores = scores * inv_outdeg
+    it, err, err_t, reads = 0, float("inf"), None, 0
+    while it < max_iterations and err >= tolerance:
+        t0 = time.perf_counter()
+        # base + d * y with one rounding (a fused multiply-add), as XLA
+        # compiles graph_tpu's update
+        new_scores = torch.full_like(out_scores, base).add_(
+            sums(out_scores), alpha=d)
+        err_t = torch.sum(torch.abs(new_scores - scores))
+        scores, out_scores = new_scores, new_scores * inv_outdeg
+        it += 1
+        if read_each:
+            err = err_t.item()  # host read: the residual decides the loop
+            reads += 1
+        if log:
+            logger.info("PageRank iteration %d finished with an error of "
+                        "%.3e in %.3fs", it, err, time.perf_counter() - t0)
+    if err_t is not None and not read_each:
+        err = err_t.item()
+        reads += 1
+    return scores, it, err, reads
+
+
+def _csr_sums(in_sources, in_targets, in_offsets, engine: str):
+    """The spmv of the ``"cumsum"`` or ``"scatter"`` engine over the
+    in-CSR: gather ``out_scores[in_targets]``, then segment-sum."""
+    n = in_offsets.numel() - 1
+    targets = in_targets.long()
+    if engine == "cumsum":
+        # row sums are bounded by sum(out_scores) <= sum(scores) = 1
+        return lambda x: segment_sum_fixedpoint(x[targets], in_offsets,
+                                                bound=1.0)
+    if engine == "scatter":
+        return lambda x: segment_sum_sorted(x[targets], in_sources, n)
+    raise ValueError(f"engine must be cumsum|scatter, got {engine!r}")
+
+
+def _page_rank_device(in_sources: torch.Tensor, in_targets: torch.Tensor,
+                      in_offsets: torch.Tensor, out_degrees: torch.Tensor,
+                      *, max_iterations: int, tolerance: float,
+                      damping_factor: float, engine: str = "cumsum"
+                      ) -> Tuple[torch.Tensor, int, float, int]:
+    """PageRank over the in-CSR with the ``"cumsum"`` or ``"scatter"``
+    engine, on the arrays' device.
+
+    in_sources: (m,) destination row of each in-edge, ascending;
+    in_targets: (m,) its source; in_offsets: (n+1,) the in-CSR offsets;
+    out_degrees: (n,).  Returns (scores, iterations, error, host reads).
+    """
+    return _jacobi(_csr_sums(in_sources, in_targets, in_offsets, engine),
+                   _inv_outdeg(out_degrees), max_iterations, tolerance,
+                   damping_factor)
+
+
+def page_rank_reference(out_neighbors_by_node, node_count: int,
+                        config: Optional[PageRankConfig] = None
+                        ) -> Tuple[np.ndarray, int, float]:
+    """Host model of the reference's exact schedule, for test parity.
+
+    For graphs below the reference's CHUNK_SIZE (16384 nodes) the Rust
+    implementation degenerates to a deterministic *sequential
+    Gauss-Seidel* sweep in node order (one chunk, in-place ``out_scores``
+    updates, page_rank.rs:127-165).  This numpy model reproduces its
+    pinned golden floats exactly and supplies expected values for
+    arbitrary small test graphs.
+    """
+    config = config or PageRankConfig()
+    n = node_count
+    in_nbrs = [[] for _ in range(n)]
+    out_deg = np.zeros(n, dtype=np.int64)
+    for u, nbrs in enumerate(out_neighbors_by_node):
+        for v in nbrs:
+            out_deg[u] += 1
+            in_nbrs[v].append(u)
+
+    d = np.float32(config.damping_factor)
+    base = (np.float32(1.0) - d) / np.float32(n)
+    init = np.float32(1.0) / np.float32(n)
+    scores = np.full(n, init, dtype=np.float32)
+    with np.errstate(divide="ignore"):
+        out_scores = np.where(
+            out_deg > 0, init / out_deg.astype(np.float32), np.float32(np.inf)
+        ).astype(np.float32)
+
+    iteration = 0
+    while True:
+        err = 0.0
+        for u in range(n):
+            s = np.float32(0.0)
+            for v in in_nbrs[u]:
+                s += out_scores[v]
+            new = base + d * s
+            err += abs(float(new) - float(scores[u]))
+            scores[u] = new
+            if out_deg[u] > 0:
+                out_scores[u] = new / np.float32(out_deg[u])
+        iteration += 1
+        if err < config.tolerance or iteration == config.max_iterations:
+            return scores, iteration, err
 
 
 def _graph_engine(graph: DirectedCsrGraph) -> EdgeEngine:
@@ -87,42 +237,32 @@ def _graph_engine(graph: DirectedCsrGraph) -> EdgeEngine:
         relabel="degree", device=graph.device))
 
 
-def _page_rank_plan(graph: DirectedCsrGraph,
-                    config: PageRankConfig) -> PageRankResult:
-    """PageRank via the EdgeEngine's SpMV kernels.
+def _run(graph: DirectedCsrGraph, config: PageRankConfig, engine: str,
+         log: bool) -> PageRankResult:
+    """One engine's Jacobi loop on the graph, timed.
 
-    Per-edge sums carry 2**-30 fixed-point quantization (bounded by
-    sum(scores) = 1), far inside the reference's 1e-4 tolerance regime.
+    The plan engine iterates in its internal node order; its per-edge
+    sums, like ``"cumsum"``'s, carry 2**-30 fixed-point quantization
+    (bounded by sum(scores) = 1), far inside the reference's 1e-4
+    tolerance regime.  ``log`` (``config.log_progress``) logs error and
+    time each iteration like the reference app (page_rank.rs:98-103), at
+    one host read per iteration; the scores are the unlogged run's.
     """
-    eng = _graph_engine(graph)
-    n = graph.node_count
-    # f32 scalars as the JAX driver computes them
-    damping = np.float32(config.damping_factor)
-    nf = np.float32(n)
-    init = float(np.float32(1.0) / nf)
-    base = float((np.float32(1.0) - damping) / nf)
-    d = float(damping)
-    tolerance = float(np.float32(config.tolerance))
-    max_iterations = int(config.max_iterations)
-
+    if engine == "plan":
+        eng = _graph_engine(graph)
+        sums = lambda x: eng.spmv(x, internal=True)  # noqa: E731
+        to_internal, to_public = eng.to_internal, eng.to_public
+    else:
+        sums = _csr_sums(graph.csr_in.sources, graph.csr_in.targets,
+                         graph.csr_in.offsets, engine)
+        to_internal = to_public = lambda v: v  # noqa: E731
     start = time.perf_counter()
-    outdeg = eng.to_internal(graph.out_degrees().to(torch.float32))
-    inv_outdeg = torch.where(outdeg > 0, 1.0 / outdeg.clamp(min=1.0), 0.0)
-    scores = torch.full((n,), init, dtype=torch.float32, device=eng.device)
-    out_scores = scores * inv_outdeg
-    it, err, err_t = 0, float("inf"), None
-    while it < max_iterations and err >= tolerance:
-        y = eng.spmv(out_scores, internal=True)
-        new_scores = base + d * y
-        err_t = torch.sum(torch.abs(new_scores - scores))
-        scores, out_scores = new_scores, new_scores * inv_outdeg
-        it += 1
-        if tolerance > 0:
-            err = err_t.item()  # host sync: the residual decides the loop
-    if err_t is not None:
-        err = err_t.item()
-    scores = eng.to_public(scores)
+    scores, it, err, reads = _jacobi(
+        sums, to_internal(_inv_outdeg(graph.out_degrees())),
+        int(config.max_iterations), config.tolerance, config.damping_factor,
+        log)
+    scores = to_public(scores)
     synchronize(scores.device)
     micros = int((time.perf_counter() - start) * 1e6)
     return PageRankResult(scores=scores, ran_iterations=it, error=err,
-                          micros=micros)
+                          micros=micros, host_reads=reads)

@@ -8,20 +8,27 @@ Connectivity is a min-label fixed point over the symmetrized edges:
     comp <- comp[comp], twice                                  (jump)
 
 repeated until nothing changes.  At the fixed point ``comp[u]`` is the
-smallest node id in u's component.  Hooks are one EdgeEngine
-``smin_int`` pass (K1 gather + K2 ``imin``) over int32 labels; jumps are
-n-sized index gathers.  The host reads one "changed" flag per round,
-since it decides the loop.
+smallest node id in u's component.  Two engines hook:
 
-Only the plan engine is ported; the three reference variants compute the
-same fully specified partition and all map onto it, as in graph_tpu.
+* ``"plan"``: one EdgeEngine ``smin_int`` pass (K1 gather + K2 ``imin``)
+  over the symmetrized edges, int32 labels;
+* ``"xla"``: two segment-mins (``scatter_reduce_``), one per CSR
+  direction (an undirected graph's one CSR serves both), labels in the
+  graph's id dtype.
+
+Jumps are n-sized index gathers.  The host reads one "changed" flag per
+round, since it decides the loop.  Both engines give the same labels in
+the same rounds; ``"auto"`` runs the plan engine, on the card the faster
+from RMAT 14 up and within launch noise below (PERF.md).
+The three reference variants compute the same fully specified partition
+and all map onto it, as in graph_tpu.
 """
 
 from __future__ import annotations
 
 import dataclasses
 import time
-from typing import Optional, Union
+from typing import Optional, Tuple, Union
 
 import numpy as np
 import torch
@@ -29,8 +36,8 @@ import torch
 from graph_tpu_torch.device import run_device, synchronize
 from graph_tpu_torch.dtypes import check_node_count_fits
 from graph_tpu_torch.engine.engine import EdgeEngine, engine_for
-from graph_tpu_torch.errors import not_ported
 from graph_tpu_torch.graph.csr import DirectedCsrGraph, UndirectedCsrGraph
+from graph_tpu_torch.ops.segment import segment_min_sorted
 
 
 @dataclasses.dataclass(frozen=True)
@@ -39,8 +46,8 @@ class WccConfig:
 
     The fields are accepted for parity with the reference API; the
     min-label algorithm has no chunking or sampling phase, so they do
-    not change the result.  ``engine``: "plan" and "auto" run the
-    EdgeEngine path; "xla" is not ported yet.
+    not change the result.  ``engine``: "plan" (the EdgeEngine), "xla"
+    (segment-mins over both CSR directions) or "auto" (the plan engine).
     """
 
     chunk_size: int = 16384
@@ -61,6 +68,8 @@ class WccResult:
     components: torch.Tensor  # (n,) id dtype — component = min node id
     ran_iterations: int
     micros: int
+    #: values the host read back from the device during the run
+    host_reads: int = 0
 
     def component(self, node: int) -> int:
         return int(self.components[node])
@@ -85,7 +94,7 @@ def wcc(graph: Union[DirectedCsrGraph, UndirectedCsrGraph],
     """
     config = config or WccConfig()
     if config.engine == "xla":
-        raise not_ported("engine='xla'")
+        return _wcc_xla(graph, device)
     if config.engine not in ("auto", "plan"):
         raise ValueError(f"unknown WCC engine {config.engine!r}")
     return _wcc_plan(graph, device)
@@ -164,4 +173,50 @@ def _wcc_plan(graph, device=None) -> WccResult:
     ids = (graph.csr.targets if isinstance(graph, UndirectedCsrGraph)
            else graph.csr_out.targets)
     return WccResult(components=comp.to(ids.dtype), ran_iterations=iters,
-                     micros=micros)
+                     micros=micros, host_reads=iters)
+
+
+def _wcc_device(fwd_sources: torch.Tensor, fwd_targets: torch.Tensor,
+                bwd_sources: torch.Tensor, bwd_targets: torch.Tensor,
+                n: int) -> Tuple[torch.Tensor, int]:
+    """Min-label propagation with two sorted segment-mins per round, one
+    per CSR direction, on the arrays' device.
+
+    Labels take the targets' id dtype; an empty segment's min is the
+    dtype's max, so it never lowers a label.  Returns (labels, rounds);
+    the host reads one changed flag per round.
+    """
+    comp = torch.arange(n, dtype=fwd_targets.dtype,
+                        device=fwd_targets.device)
+    fwd_t, bwd_t = fwd_targets.long(), bwd_targets.long()
+    iters = 0
+    while True:
+        # hook: pull the minimum label across both edge directions
+        m_out = segment_min_sorted(comp[fwd_t], fwd_sources, n)
+        m_in = segment_min_sorted(comp[bwd_t], bwd_sources, n)
+        new = torch.minimum(comp, torch.minimum(m_out, m_in))
+        new = new[new.long()]  # jump: two squarings per round
+        new = new[new.long()]
+        iters += 1
+        changed = bool((new != comp).any())  # host read: decides the loop
+        comp = new
+        if not changed:
+            return comp, iters
+
+
+def _wcc_xla(graph, device=None) -> WccResult:
+    """``engine="xla"``: :func:`_wcc_device` over the graph's CSRs, where
+    the graph runs (:func:`~graph_tpu_torch.device.run_device`)."""
+    device = run_device(graph, device)
+    if isinstance(graph, UndirectedCsrGraph):
+        fwd = bwd = graph.csr  # both directions already in the one CSR
+    else:
+        fwd, bwd = graph.csr_out, graph.csr_in
+    arrays = [a.to(device) for a in (fwd.sources, fwd.targets,
+                                     bwd.sources, bwd.targets)]
+    start = time.perf_counter()
+    comp, iters = _wcc_device(*arrays, graph.node_count)
+    synchronize(comp.device)
+    micros = int((time.perf_counter() - start) * 1e6)
+    return WccResult(components=comp, ran_iterations=iters, micros=micros,
+                     host_reads=iters)

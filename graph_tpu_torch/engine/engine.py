@@ -19,7 +19,7 @@ sort-based and gather-plan permutes become ``x[iperm]`` and ``y[perm]``.
 Per plan, the engine fixes what shapes the kernels' work: K2's tile cuts,
 computed once, and K1's shared-memory window, ``K1_WINDOW`` sources for a
 degree-relabeled plan (its hottest sources have the lowest ids) and 0
-for a plan on node ids.
+for a plan on node ids (rectangular plans among them).
 """
 
 from __future__ import annotations
@@ -83,8 +83,9 @@ class EdgeEngine:
         return y if self.perm is None else y[self.perm]
 
     def _check_x(self, x: torch.Tensor, dtype: torch.dtype) -> None:
-        if x.shape != (self.plan.n,) or x.dtype != dtype:
-            raise ValueError(f"x must be ({self.plan.n},) {dtype}, got "
+        nx = self.plan.nx  # n_src on a rectangular plan
+        if x.shape != (nx,) or x.dtype != dtype:
+            raise ValueError(f"x must be ({nx},) {dtype}, got "
                              f"{tuple(x.shape)} {x.dtype}")
 
     def spmv(self, x: torch.Tensor, bound: float = 1.0,

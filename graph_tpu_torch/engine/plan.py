@@ -18,6 +18,11 @@ so the port's plan is a destination-sorted CSR of sources:
 exactly as the JAX plan does (``perm`` maps original id -> internal id),
 so hot sources sit together in the gathered vector.
 
+A rectangular plan (``n_src=``) has ``n`` destination rows and gathers
+from ``n_src`` sources: the out-of-core engine's destination slabs, each
+reducing into its own rows from every node.  It is on node ids (no
+relabel).
+
 The build runs on the plan's device: the relabel, the (dst, src) sort and
 the row offsets are torch operations there.
 """
@@ -37,7 +42,7 @@ from graph_tpu_torch.device import resolve_device
 
 logger = logging.getLogger(__name__)
 
-FORMAT_VERSION = 2  # v2: slot_w (edge values)
+FORMAT_VERSION = 3  # v2: slot_w (edge values); v3: n_src
 
 
 @dataclasses.dataclass(frozen=True)
@@ -52,18 +57,26 @@ class EdgePlan:
     perm: Optional[torch.Tensor] = None
     #: (m,) f32 edge value of each slot, or None for a plan without values
     slot_w: Optional[torch.Tensor] = None
+    #: sources of a rectangular plan; 0 means square (``n`` sources)
+    n_src: int = 0
 
     @property
     def device(self) -> torch.device:
         return self.indptr.device
 
+    @property
+    def nx(self) -> int:
+        """Length of the gathered vector: ``n_src``, or ``n`` if square."""
+        return self.n_src or self.n
+
     def save(self, path: str) -> None:
         """Snapshot the plan as npz with a header (n, m, format version,
-        whether it has edge values)."""
+        whether it has edge values, n_src)."""
         np.savez(
             path,
             __header__=np.array([self.n, self.m, FORMAT_VERSION,
-                                 self.slot_w is not None], np.int64),
+                                 self.slot_w is not None, self.n_src],
+                                np.int64),
             indptr=self.indptr.cpu().numpy(),
             slot_src=self.slot_src.cpu().numpy(),
             perm=(np.zeros(0, np.int32) if self.perm is None
@@ -74,16 +87,18 @@ class EdgePlan:
 
     @staticmethod
     def load(path: str, device=None) -> "EdgePlan":
-        """Read a snapshot written by :meth:`save` onto ``device``."""
+        """Read a snapshot written by :meth:`save` onto ``device``; a
+        format-2 snapshot (no ``n_src``) loads as square."""
         device = resolve_device(device)
         with np.load(path) as z:
             h = z["__header__"]
             version = int(h[2]) if h.size >= 3 else -1
-            if h.size != 4 or version != FORMAT_VERSION:
+            if (version, h.size) not in ((2, 4), (FORMAT_VERSION, 5)):
                 raise ValueError(
                     f"{path}: plan format {version} != {FORMAT_VERSION}; "
                     "rebuild the plan")
             n, m, has_w = int(h[0]), int(h[1]), bool(h[3])
+            n_src = int(h[4]) if version == FORMAT_VERSION else 0
             indptr = torch.from_numpy(z["indptr"]).to(device)
             slot_src = torch.from_numpy(z["slot_src"]).to(device)
             perm = z["perm"]
@@ -97,7 +112,7 @@ class EdgePlan:
                         perm=torch.from_numpy(perm).to(device)
                         if perm.size else None,
                         slot_w=torch.from_numpy(slot_w).to(device)
-                        if has_w else None)
+                        if has_w else None, n_src=n_src)
 
 
 def _as_ids(a, device: torch.device) -> torch.Tensor:
@@ -119,32 +134,34 @@ def _as_values(values, device: torch.device) -> Optional[torch.Tensor]:
 
 def _compile(src: torch.Tensor, dst: torch.Tensor, n: int,
              perm: Optional[torch.Tensor],
-             values: Optional[torch.Tensor]) -> EdgePlan:
+             values: Optional[torch.Tensor], n_src: int = 0) -> EdgePlan:
     m = src.numel()
+    nx = n_src or n
     if dst.numel() != m:
         raise ValueError(f"src has {m} edges, dst {dst.numel()}")
     if values is not None and values.numel() != m:
         raise ValueError(f"values has {values.numel()} entries, src {m}")
     if m and (int(torch.minimum(src.min(), dst.min())) < 0
-              or int(torch.maximum(src.max(), dst.max())) >= n):
-        raise ValueError(f"edge endpoints must lie in [0, {n})")
+              or int(src.max()) >= nx or int(dst.max()) >= n):
+        raise ValueError(f"edge endpoints must lie in [0, {nx}) for "
+                         f"sources and [0, {n}) for destinations")
     if perm is not None:
         p = perm.long()
         src, dst = p[src], p[dst]
-    # one int64 key orders slots by (dst, src); n < 2**31 keeps it exact.
-    # Weights follow their slots: the sort's indices gather them, so
-    # duplicate edges keep their own (stable: the same plan every build).
+    # one int64 key orders slots by (dst, src); n, nx < 2**31 keep it
+    # exact.  Weights follow their slots: the sort's indices gather them,
+    # so duplicate edges keep their own (stable: the same plan every build).
     slot_w = None
     if values is None:
-        key = torch.sort(dst * n + src).values
+        key = torch.sort(dst * nx + src).values
     else:
-        key, order = torch.sort(dst * n + src, stable=True)
+        key, order = torch.sort(dst * nx + src, stable=True)
         slot_w = values[order]
-    slot_src = (key % max(n, 1)).to(torch.int32)
+    slot_src = (key % max(nx, 1)).to(torch.int32)
     indptr = torch.zeros(n + 1, dtype=torch.int64, device=src.device)
     torch.cumsum(torch.bincount(dst, minlength=n), 0, out=indptr[1:])
     return EdgePlan(n=n, m=m, indptr=indptr, slot_src=slot_src, perm=perm,
-                    slot_w=slot_w)
+                    slot_w=slot_w, n_src=n_src)
 
 
 def degree_perm(src: torch.Tensor, n: int) -> torch.Tensor:
@@ -160,22 +177,28 @@ def degree_perm(src: torch.Tensor, n: int) -> torch.Tensor:
 
 
 def build_plan(src, dst, n: int, relabel: Optional[str] = None,
-               device=None, values=None) -> EdgePlan:
+               device=None, values=None,
+               n_src: Optional[int] = None) -> EdgePlan:
     """Compile an edge list (numpy arrays or tensors) into an EdgePlan.
 
     The plan gathers x[src] and reduces into y[dst].  ``relabel="degree"``
     builds it on the internal descending-out-degree node order.
     ``values`` (m,) are the edge values (weights), stored as f32 per slot.
+    ``n_src`` makes the plan rectangular: ``n`` destination rows gathering
+    from ``n_src`` sources (exclusive with ``relabel``).
     """
     if relabel not in (None, "degree"):
         raise ValueError(f"relabel must be None or 'degree', got {relabel!r}")
+    if n_src is not None and relabel is not None:
+        raise ValueError("relabel and n_src (rectangular plan) are exclusive")
     device = resolve_device(device)
-    n = int(n)
-    if n >= 2**31:
-        raise OverflowError(f"n = {n} does not fit the plan's int32 sources")
+    n, n_src = int(n), int(n_src or 0)
+    if max(n, n_src) >= 2**31:
+        raise OverflowError(f"n = {n}, n_src = {n_src} do not fit the "
+                            "plan's int32 sources")
     src_t, dst_t = _as_ids(src, device), _as_ids(dst, device)
     perm = degree_perm(src_t, n) if relabel == "degree" else None
-    return _compile(src_t, dst_t, n, perm, _as_values(values, device))
+    return _compile(src_t, dst_t, n, perm, _as_values(values, device), n_src)
 
 
 def plan_from_numpy(src: np.ndarray, dst: np.ndarray, n: int,

@@ -39,9 +39,3 @@ class InvalidPartitioning(GraphError):
 class GraphNotFound(GraphError):
     """Named graph missing from the catalog (server/src/catalog.rs:144)."""
 
-
-def not_ported(what: str) -> NotImplementedError:
-    """The error an entry point raises for an engine the port lacks."""
-    return NotImplementedError(
-        f"{what} is not ported yet: the paths that do not use the "
-        "EdgeEngine come with ROADMAP queue 1, item 8")

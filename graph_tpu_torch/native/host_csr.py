@@ -1,10 +1,11 @@
-"""ctypes binding for the native host-CSR builder.
+"""ctypes binding for the native host-CSR builder and the triangle-count
+orientation.
 
-Counterpart of ``graph_tpu.native.host_csr``'s ``build_undirected_native``;
-the C++ is the port's own copy, ``native/host_csr.cpp``, which also holds
-the triangle-count orientation (``gt_tc_orient``) that the port binds when
-it ports triangle counting.  Returns None when the library cannot be
-built; callers then use the numpy paths, which give the same results.
+Counterpart of ``graph_tpu.native.host_csr`` (``build_undirected_native``,
+``tc_orient_native``); the C++ is the port's own copy,
+``native/host_csr.cpp``.  Each returns None when the library cannot be
+built; callers then use the numpy paths, which give the same results, and
+:func:`load_error` says why.
 """
 
 from __future__ import annotations
@@ -49,6 +50,10 @@ def _load():
                 ctypes.c_int64, ctypes.c_int]
             _lib.gt_host_csr_free.argtypes = [ctypes.POINTER(_GtHostCsr)]
             _lib.gt_host_csr_free.restype = None
+            i32p = ctypes.POINTER(ctypes.c_int32)
+            _lib.gt_tc_orient.restype = ctypes.c_int64
+            _lib.gt_tc_orient.argtypes = [i32p, i32p, ctypes.c_int64,
+                                          ctypes.c_int64, i32p, i32p]
     return _lib
 
 
@@ -98,3 +103,31 @@ def build_undirected_native(src, dst, values, n: int, layout_code: int):
         lib.gt_host_csr_free(out_p)
     return offsets, rows, cols, vals
 
+
+
+def tc_orient_native(srcs, tgts, n: int):
+    """Triangle-count orientation: rank nodes by ascending degree (ties by
+    id), keep the edges whose source ranks below their target, sorted by
+    (rank(src), rank(dst)).  srcs, tgts: (m,) ids below ``n`` (both
+    directions of each undirected edge).  Returns (a, b) int32 numpy
+    arrays of the forward edges' ranks, or None without the library."""
+    lib = _load()
+    if lib is None:
+        return None
+    srcs = np.ascontiguousarray(srcs, np.int32)
+    tgts = np.ascontiguousarray(tgts, np.int32)
+    if srcs.shape != tgts.shape or srcs.ndim != 1:
+        raise ValueError(f"srcs {srcs.shape} and tgts {tgts.shape} must be "
+                         "1-d of one length")
+    if srcs.size and (min(srcs.min(), tgts.min()) < 0
+                      or max(srcs.max(), tgts.max()) >= n):
+        raise ValueError(f"edge endpoints must lie in [0, {n})")
+    m = srcs.size
+    a = np.empty(m, np.int32)
+    b = np.empty(m, np.int32)
+    i32p = ctypes.POINTER(ctypes.c_int32)
+    mf = lib.gt_tc_orient(srcs.ctypes.data_as(i32p),
+                          tgts.ctypes.data_as(i32p), ctypes.c_int64(m),
+                          ctypes.c_int64(n), a.ctypes.data_as(i32p),
+                          b.ctypes.data_as(i32p))
+    return a[:mf].copy(), b[:mf].copy()

@@ -62,17 +62,28 @@ def no_card(monkeypatch):
 
 def test_entry_points_raise_without_device_or_card(no_card):
     from graph_tpu_torch import (
-        EdgeEngine, build_directed, build_undirected, csr_from_coo)
+        CsrLayout, EdgeEngine, OocEdgeEngine, build_directed,
+        build_undirected, build_undirected_host, csr_from_coo,
+        global_triangle_count)
+    from graph_tpu_torch.engine.ooc import (
+        page_rank_ooc, sssp_ooc, wcc_ooc)
     from graph_tpu_torch.engine.plan import build_plan, plan_from_numpy
 
     src, dst = np.array([0, 1]), np.array([1, 2])
+    host = build_undirected_host(src, dst, layout=CsrLayout.DEDUPLICATED)
     calls = [
         lambda: build_directed(src, dst),
         lambda: build_undirected(src, dst),
         lambda: csr_from_coo(src, dst, node_count=3),
         lambda: EdgeEngine.build(src, dst, 3),
         lambda: build_plan(src, dst, 3),
+        lambda: build_plan(src, dst, 3, n_src=3),
         lambda: plan_from_numpy(src, dst, 3),
+        lambda: OocEdgeEngine.build(src, dst, 3),
+        lambda: page_rank_ooc(src, dst, 3),
+        lambda: wcc_ooc(src, dst, 3),
+        lambda: sssp_ooc(src, dst, np.ones(2, np.float32), 3),
+        lambda: global_triangle_count(host),
     ]
     for call in calls:
         with pytest.raises(RuntimeError, match="device='cpu'"):
@@ -83,10 +94,11 @@ def test_entry_points_raise_without_device_or_card(no_card):
 
 
 def test_port_opens_nothing_of_the_jax_side(tmp_path):
-    """Building the host C++, parsing, building on the host and writing
-    and reading a snapshot open no file, and start no compiler on a file,
-    under the repository's root ``native/`` or ``graph_tpu/``: the port
-    compiles its own copies."""
+    """Building the host C++, parsing, building on the host, writing and
+    reading a snapshot, counting triangles (the native orientation), the
+    segment-op engines and the out-of-core engine open no file, and start
+    no compiler on a file, under the repository's root ``native/`` or
+    ``graph_tpu/``: the port compiles its own copies."""
     code = f"""
 import os, sys
 seen = []
@@ -102,6 +114,18 @@ g = gtt.GraphBuilder().path(el).build_undirected(host=True)
 snap = os.path.join({str(tmp_path)!r}, "g.bin")
 gtt.save_graph(snap, g)
 gtt.load_graph(snap, device="cpu")
+tg = gtt.build_undirected([0, 1, 2, 2], [1, 2, 0, 3], device="cpu",
+                          layout=gtt.CsrLayout.DEDUPLICATED)
+assert gtt.global_triangle_count(tg).triangles == 1
+from graph_tpu_torch.native import host_csr
+assert host_csr.load_error() is None
+dg = gtt.build_directed([0, 1, 2], [1, 2, 0], [1.0, 2.0, 3.0], device="cpu")
+gtt.page_rank(dg, gtt.PageRankConfig(engine="cumsum"))
+gtt.wcc(dg, gtt.WccConfig(engine="xla"))
+for engine in ("xla", "frontier"):
+    gtt.delta_stepping(dg, gtt.DeltaSteppingConfig(0, 1.0, engine=engine))
+from graph_tpu_torch.engine.ooc import wcc_ooc
+assert wcc_ooc([0, 1], [1, 2], 4, device="cpu").tolist() == [0, 0, 0, 3]
 paths, compiled = [], 0
 for event, args in seen:
     items = args[1] if event == "subprocess.Popen" else [args[0]]

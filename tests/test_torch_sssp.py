@@ -100,8 +100,9 @@ def test_errors():
     with pytest.raises(ValueError, match="edge weights"):
         delta_stepping(g, DeltaSteppingConfig(0, 1.0))
     gw = _golden_graph()
-    for engine in ("xla", "frontier"):
-        with pytest.raises(NotImplementedError, match="item 8"):
-            delta_stepping(gw, DeltaSteppingConfig(0, 1.0, engine=engine))
+    for engine in ("xla", "frontier"):  # ported: the golden, exactly
+        np.testing.assert_array_equal(delta_stepping(
+            gw, DeltaSteppingConfig(0, 1.0, engine=engine)).distances_np(),
+            GOLDEN)
     with pytest.raises(ValueError, match="start_node"):
         delta_stepping(gw, DeltaSteppingConfig(6, 1.0))

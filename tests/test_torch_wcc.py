@@ -66,7 +66,8 @@ def test_wcc_matches_graph_tpu(graph, undirected):
     src, dst, n = GRAPHS[graph]()
     want = _jax_wcc(src, dst, n, undirected)
     build = build_undirected if undirected else build_directed
-    got = wcc(build(src, dst, node_count=n, device="cpu"))
+    got = wcc(build(src, dst, node_count=n, device="cpu"),
+              WccConfig(engine="plan"))
     labels = got.components_np()
     assert labels.dtype == np.asarray(want.components).dtype
     np.testing.assert_array_equal(labels, np.asarray(want.components))
@@ -89,7 +90,7 @@ def test_variants_and_engines():
         wcc(g, WccConfig(engine="plan")).components_np(), base)
     np.testing.assert_array_equal(wcc_components(g).numpy(), base)
     assert wcc(g).component(int(src[0])) == base[src[0]]
-    with pytest.raises(NotImplementedError, match="item 8"):
-        wcc(g, WccConfig(engine="xla"))
+    np.testing.assert_array_equal(
+        wcc(g, WccConfig(engine="xla")).components_np(), base)
     with pytest.raises(ValueError):
         wcc(g, WccConfig(engine="pallas"))
