@@ -1,7 +1,7 @@
 #!/usr/bin/env python3
 """On-card check of graph_tpu_torch: PageRank, WCC, SSSP and triangle count
-at RMAT scale 22 on every engine, in core and out of core, and the same
-graph loaded from files through the builder.
+at RMAT scale 22 on every engine, in core and out of core, the same graph
+loaded from files through the builder, and the K1 gather probes.
 
 Run from the repository root on a machine with one CUDA card:
 
@@ -52,10 +52,16 @@ after, and fails unless each of its kernels launched at least once per
 iteration (per slab, out of core); the kernel rows add up every path's
 runs.  A window probe then times K1 at the PageRank and SSSP shapes
 with several shared-memory windows (0 among them) in this one process.
+The K1 gather probes (``graph_tpu_torch.probes``: the four kernels of
+``scripts/perf_k1_{lanemap,rowmatch,sublane}.py``) run through their
+entry points at the scripts' windows and seeds, at 4,194,304 and
+67,108,864 slots, each exact against its plain version, beside K1's own
+rate; and one ``graph_tpu_torch.profile`` trace of the PageRank run gives
+the device's busy share and the kernels that took the most time.
 It prints one JSON line per phase; the line before the last lists the
 kernels, with each design's facts (K2's tile, K1's window and the share
-of slots it serves), and the last line is ``{"ok": true, "device":
-{...}}``.
+of slots it serves, a probe's window or depth), and the last line is
+``{"ok": true, "device": {...}}``.
 Any failed check exits non-zero without that line, as does a machine
 without a CUDA device.
 """
@@ -85,6 +91,8 @@ SCALAR_OPS_PER_S = 67e12
 BYTES_PER_EDGE = 12.0
 #: K1 windows the probe times (sources kept in shared memory per block).
 PROBE_WINDOWS = (0, 16384, 32768, 40960, 49152, 58112)
+#: Every window of the K1 gather probe scripts (scripts/perf_k1_*.py).
+PROBE_SCRIPT_WINDOWS = (1024, 2048, 4096, 8192, 16384)
 #: Scale of the triangle phase's host checks (scale 22 has about 51e9
 #: multiset wedges); side of bench.py's SSSP grid; out-of-core slabs.
 TC_CHECK_SCALE = 16
@@ -1307,6 +1315,214 @@ def window_probe(kernels, plan, xq, wplan, dist):
     return out
 
 
+def probe_edge_cases(dev, errs):
+    """Every probe kernel against its plain version on arbitrary in-range
+    input: the scripts' windows and depths, 1,000 rows (ragged against the
+    kernels' 32-row chunks), x and t also at storage offset 1 (not 16-byte
+    aligned), lanemap's stream with bits 7 and 15 set at random."""
+    import torch
+
+    from graph_tpu_torch.probes import k1_lanemap, kernels as p
+
+    g = np.random.default_rng(21)
+    shape = (1000, 128)
+    for win in PROBE_SCRIPT_WINDOWS:
+        idx = torch.from_numpy(g.integers(0, win, shape).astype(
+            np.uint16)).to(dev)
+        st = torch.from_numpy((g.integers(0, win // 128, shape) << 8
+                               | g.integers(0, 256, shape)
+                               | g.integers(0, 2, shape) << 15).astype(
+            np.uint16)).to(dev)
+        xs = torch.from_numpy(g.random(win + 1).astype(np.float32)).to(dev)
+        for x in (xs[:win], xs[1:]):
+            hold(errs, "probe_lanemap", p.lanemap(st, x),
+                 p.lanemap_plain(st, x))
+            hold(errs, "probe_sublane", p.sublane(idx, x),
+                 p.sublane_plain(idx, x))
+            for mode in p.MODES:
+                hold(errs, "probe_window_gather",
+                     p.window_gather(idx, x, mode),
+                     p.window_gather_plain(idx, x, mode))
+    idx = torch.from_numpy(g.integers(0, 1 << 16, shape).astype(
+        np.uint16)).to(dev)
+    for rows in k1_lanemap.ROWS:
+        ts = torch.from_numpy(g.random(rows * 128 + 1).astype(
+            np.float32)).to(dev)
+        for t in (ts[:-1].view(rows, 128), ts[1:].view(rows, 128)):
+            hold(errs, "probe_row_gather", p.row_gather(idx, t),
+                 p.row_gather_plain(idx, t))
+
+
+def k1_probes_phase(dev, card, errs, k1_window):
+    """The K1 gather probes through their entry points at the scripts'
+    windows, depths and seeds, at 4,194,304 slots (the scripts' size) and
+    67,108,864 (K1's at scale 22), each with the launch counts set to 0
+    just before and read just after; every case exact against its plain
+    version, the x[idx] shares of the scripts' findings, the bound and
+    the library yardstick (timed here, on the case's inputs).  Beside
+    them, K1's own rate at each window (the window_probe phase).
+    Returns the launches by size and the table rows' cases."""
+    from graph_tpu_torch import profile
+    from graph_tpu_torch.probes import (
+        BLK, K1_NBLK, NBLK, k1_lanemap, k1_rowmatch, k1_sublane,
+        kernels as p)
+
+    table_case = {"probe_row_gather": ("rows", 128),
+                  "probe_lanemap": ("win", 16384),
+                  "probe_window_gather": ("win", 16384),
+                  "probe_sublane": ("win", 8192)}
+    cases, launches, out = {}, {}, {}
+
+    def observe(res, inputs):
+        idx, table = inputs
+        res["bound_ms"], res["bound_by"] = bound_of(res["bytes"], 0)
+        library = probe_library(res, idx, table)
+        res["library_ms"] = None if library is None else time_ms(library)
+        key, value = table_case[res["kernel"]]
+        if (res["slots"] == K1_NBLK * BLK and res.get(key) == value
+                and res.get("mode", "rowscan") in ("rowscan", "sublane")
+                and res["kernel"] not in cases):
+            cases[res["kernel"]] = (res, inputs, library)
+
+    def drive_probes(nblk, **kw):
+        res = k1_lanemap.depth_probe(nblk, dev, **kw)
+        res += [k1_lanemap.lanemap_bench(win, nblk, dev, **kw)
+                for win in k1_lanemap.WINDOWS]
+        res += k1_rowmatch.bench(k1_rowmatch.WINDOWS, nblk, dev, **kw)
+        res += k1_sublane.bench(k1_sublane.WINDOWS, nblk, dev, **kw)
+        _sync()
+        return res
+
+    for nblk in (NBLK, K1_NBLK):
+        p.reset_launches()
+        t0 = time.perf_counter()
+        res = drive_probes(nblk, observe=observe)
+        launches[nblk] = dict(p.LAUNCHES)
+        for name, n in launches[nblk].items():
+            check(n >= 1, f"k1_probes: {name} launched {n} times at "
+                  f"{nblk} blocks")
+        for r in res:
+            check(r["exact"], f"k1_probes: {r['label']} at {nblk} blocks "
+                  "disagrees with its plain version")
+            if r.get("mode") == "rowmatch":  # the script's row-matched input
+                check(r["x_idx_share"] == 1.0, f"{r['label']}: x[idx] "
+                      f"share {r['x_idx_share']}")
+            if r.get("mode") == "sublane":  # reads the final lane's sublane
+                check(0.08 < r["x_idx_share"] < 0.2, f"{r['label']}: x[idx] "
+                      f"share {r['x_idx_share']}")
+        out[f"{nblk * BLK}_slots"] = {
+            "s": time.perf_counter() - t0,
+            "cases": [{k: v for k, v in r.items() if k != "kernel"}
+                      for r in res]}
+    check(set(cases) == set(table_case),
+          f"k1_probes: table cases {sorted(cases)}")
+    # at the scripts' size a call's time is the host's (wrapper, ctypes,
+    # launch): a traced pass gives each kernel's device time a launch
+    with profile.trace(os.path.join(ROOT, ".cache", "profile")) as log_dir:
+        drive_probes(NBLK, reps=5)
+    busy = profile.device_busy(profile.newest_trace(log_dir))
+    device_us = {}
+    for name in p.LAUNCHES:
+        kernel = f"::{name.removeprefix('probe_')}_kernel("
+        hits = [(us, busy["device_calls_by_name"][k])
+                for k, us in busy["device_us_by_name"].items() if kernel in k]
+        calls = sum(c for _, c in hits)
+        per_launch = sum(us for us, _ in hits) / calls if calls else None
+        device_us[name] = {"launches_traced": calls,
+                           "device_us_per_launch": per_launch}
+    out[f"{NBLK * BLK}_slots"]["traced"] = device_us
+    emit({"phase": "k1_probes", "card": card, **out,
+          "k1_window_probe_pagerank": k1_window})
+    return launches, cases
+
+
+def probe_library(res, idx, table):
+    """The one PyTorch call that computes a probe case's function, where
+    there is one: ``torch.take`` for rowscan (a gather from L2 with no
+    staging), ``torch.gather`` for the depth probe; else None."""
+    import torch
+
+    if res["kernel"] == "probe_row_gather":
+        return lambda: torch.gather(table, 0, (idx.to(torch.int32)
+                                               % table.shape[0]).long())
+    if res.get("mode") == "rowscan":
+        return lambda: torch.take(table, idx.long())
+    return None
+
+
+def probe_rows(errs, launches, cases):
+    """The four probe kernels' rows of the kernel table, at their 67 M-slot
+    cases; each held once more against its plain version there."""
+    from graph_tpu_torch.probes import BLK, k1_sublane, kernels as p
+
+    replaces = {
+        "probe_row_gather": "scripts/perf_k1_lanemap.py:28",
+        "probe_lanemap": "scripts/perf_k1_lanemap.py:65",
+        "probe_window_gather": "scripts/perf_k1_rowmatch.py:40",
+        "probe_sublane": "scripts/perf_k1_sublane.py:36"}
+    calls = {
+        "probe_row_gather": (p.row_gather, p.row_gather_plain),
+        "probe_lanemap": (p.lanemap, p.lanemap_plain),
+        "probe_window_gather": (
+            lambda i, x: p.window_gather(i, x, "rowscan"),
+            lambda i, x: p.window_gather_plain(i, x, "rowscan")),
+        "probe_sublane": (lambda i, x: k1_sublane.run("sublane", i, x),
+                          lambda i, x: k1_sublane.plain("sublane", i, x))}
+    total = launches_of(*launches.values())
+    rows = []
+    for name, (res, (idx, table), library) in cases.items():
+        kernel, plain = calls[name]
+        hold(errs, name, kernel(idx, table), plain(idx, table))
+        design = {k: res[k] for k in ("rows", "win", "mode", "x_idx_share")
+                  if k in res}
+        t = row(name, "k1_probes", "k1_probes.cu", replaces[name], total,
+                errs, lambda: kernel(idx, table), lambda: plain(idx, table),
+                ("torch.gather" if name == "probe_row_gather"
+                 else "torch.take", library) if library else
+                "none: no single PyTorch call computes it",
+                res["bytes"], 0, f"slots={res['slots']}", design)
+        t["launches_by_path"] = {f"k1_probes ({n * BLK} slots)":
+                                 runs[name] for n, runs in launches.items()}
+        rows.append(t)
+    return rows
+
+
+def profile_phase(gtt, graph, cfg, card):
+    """One ``graph_tpu_torch.profile.trace`` of the 20-iteration PageRank
+    on the scale-22 plan (each iteration annotated by the port): the
+    trace's size, the kernels that took the most device time, and the
+    device's busy share over the run and over the whole trace."""
+    from graph_tpu_torch import profile
+    from graph_tpu_torch.algos.pagerank import ITERATION
+
+    gtt.page_rank(graph, cfg)  # warm: the engine is built and cached
+    with profile.trace(os.path.join(ROOT, ".cache", "profile")) as log_dir:
+        with profile.annotate("pagerank_run"):
+            res = gtt.page_rank(graph, cfg)
+    path = profile.newest_trace(log_dir)
+    with open(path) as f:
+        iterations = sum(e.get("name") == ITERATION
+                         and e.get("cat") == "user_annotation"
+                         for e in json.load(f)["traceEvents"])
+    check(iterations == res.ran_iterations == ITERS,
+          f"profile: {iterations} annotated iterations")
+    run = profile.device_busy(path, region="pagerank_run")
+    whole = profile.device_busy(path)
+    check(run["busy_us"] > 0, "profile: no device activity in the trace")
+    top = list(run["device_us_by_name"].items())[:8]
+    emit({"phase": "profile", "card": card, "trace_bytes":
+          os.path.getsize(path), "iterations": res.ran_iterations,
+          "run_s": res.micros / 1e6, "run_window_us": run["window_us"],
+          "run_busy_us": run["busy_us"],
+          "run_busy_share": run["busy_share"],
+          "trace_window_us": whole["window_us"],
+          "trace_busy_share": whole["busy_share"],
+          "top_device_us": dict(top),
+          "port_kernels_seen": sorted(
+              name for name in run["device_us_by_name"]
+              if "k1_" in name or "k2_" in name)})
+
+
 def run():
     import torch
 
@@ -1320,6 +1536,7 @@ def run():
         from graph_tpu_torch.engine import _build, kernels
         from graph_tpu_torch.generate import cached_rmat
         from graph_tpu_torch.native.build import build_library
+        from graph_tpu_torch.probes import kernels as probes
     except ImportError as exc:
         print(f"chip_smoke: graph_tpu_torch not found next to this script "
               f"({exc})", file=sys.stderr)
@@ -1525,14 +1742,28 @@ def run():
             (n,), k.INF_BITS, dtype=torch.int32, device=dev).scatter_reduce_(
                 0, rows, c_bits, "amin")),
         4 * m + 8 * (n + 1) + 4 * n, m, sssp_shapes, k2_design(k, wcuts)))
-    emit({"phase": "window_probe", "card": card,
-          **window_probe(k, plan, xq, wp, dist)})
+    wprobe = window_probe(k, plan, xq, wp, dist)
+    emit({"phase": "window_probe", "card": card, **wprobe})
     del xq
     for t in table:  # the exactness of every kernel, edge cases included
         t["max_abs_err"] = errs[t["name"]]
         t["launches_by_path"] = {
             path: runs[t["name"]]
             for path, runs in by_path[t["path"].split()[0]].items()}
+
+    # 8. the K1 gather probes (their edge cases first, not counted), with
+    # K1's own rate at each window beside them; a profiler trace of the
+    # PageRank run
+    probe_errs = {name: 0 for name in probes.LAUNCHES}
+    probe_edge_cases(dev, probe_errs)
+    k1_window = {h: {**r, "ns_per_slot": r["ms"] * 1e6 / m,
+                     "gb_per_s": (8 * m + 4 * n) / r["ms"] / 1e6}
+                 for h, r in wprobe["pagerank"].items()}
+    probe_launches, cases = k1_probes_phase(dev, card, probe_errs, k1_window)
+    table += probe_rows(probe_errs, probe_launches, cases)
+    del cases
+    free_device()
+    profile_phase(gtt, graph, cfg, card)
 
     iter_ms = best / ITERS * 1e3
     emit({"phase": "kernel_detail",

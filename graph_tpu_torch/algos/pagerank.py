@@ -42,10 +42,13 @@ from graph_tpu_torch.engine.engine import EdgeEngine, engine_for
 from graph_tpu_torch.graph.csr import DirectedCsrGraph
 from graph_tpu_torch.ops.segment import (
     segment_sum_fixedpoint, segment_sum_sorted)
+from graph_tpu_torch.profile import annotate
 
 logger = logging.getLogger(__name__)
 
 ENGINES = ("auto", "plan", "cumsum", "scatter")
+#: The name of each Jacobi iteration's region in a profiler trace.
+ITERATION = "page_rank.iteration"
 
 
 @dataclasses.dataclass(frozen=True)
@@ -132,16 +135,17 @@ def _jacobi(sums: Callable[[torch.Tensor], torch.Tensor],
     it, err, err_t, reads = 0, float("inf"), None, 0
     while it < max_iterations and err >= tolerance:
         t0 = time.perf_counter()
-        # base + d * y with one rounding (a fused multiply-add), as XLA
-        # compiles graph_tpu's update
-        new_scores = torch.full_like(out_scores, base).add_(
-            sums(out_scores), alpha=d)
-        err_t = torch.sum(torch.abs(new_scores - scores))
-        scores, out_scores = new_scores, new_scores * inv_outdeg
-        it += 1
-        if read_each:
-            err = err_t.item()  # host read: the residual decides the loop
-            reads += 1
+        with annotate(ITERATION):
+            # base + d * y with one rounding (a fused multiply-add), as
+            # XLA compiles graph_tpu's update
+            new_scores = torch.full_like(out_scores, base).add_(
+                sums(out_scores), alpha=d)
+            err_t = torch.sum(torch.abs(new_scores - scores))
+            scores, out_scores = new_scores, new_scores * inv_outdeg
+            it += 1
+            if read_each:
+                err = err_t.item()  # host read: the residual decides the loop
+                reads += 1
         if log:
             logger.info("PageRank iteration %d finished with an error of "
                         "%.3e in %.3fs", it, err, time.perf_counter() - t0)

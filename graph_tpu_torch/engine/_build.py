@@ -36,6 +36,10 @@ SIGNATURES = {
     "k1_gather_weighted": (_P, _P, _P, _P, _I64, _I32, _I32, _I32, _P),
     "k2_reduce": (_P, _P, _P, _P, _P, _I64, _I64, _I64, _P),
     "k2_reduce_min": (_P, _P, _P, _P, _P, _I64, _I64, _I64, _I32, _P),
+    "probe_row_gather": (_P, _P, _P, _I64, _I32, _P),
+    "probe_lanemap": (_P, _P, _P, _I64, _I32, _P),
+    "probe_window_gather": (_P, _P, _P, _I64, _I32, _I32, _P),
+    "probe_sublane": (_P, _P, _P, _I64, _I32, _P),
 }
 #: The source (``csrc/<source>.cu``) that defines each entry point.
 SOURCES = {
@@ -43,6 +47,10 @@ SOURCES = {
     "k1_gather_weighted": "k1_gather",
     "k2_reduce": "k2_reduce",
     "k2_reduce_min": "k2_reduce",
+    "probe_row_gather": "k1_probes",
+    "probe_lanemap": "k1_probes",
+    "probe_window_gather": "k1_probes",
+    "probe_sublane": "k1_probes",
 }
 
 _libs: dict = {}

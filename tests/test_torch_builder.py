@@ -180,8 +180,7 @@ def test_builder_page_rank_matches_graph_tpu():
     want = _jax_page_rank(JaxBuilder().edges(WIKI_EDGES).build_directed(),
                           cfg)
     assert got.ran_iterations == want.ran_iterations
-    np.testing.assert_allclose(got.scores_np(), want.scores_np(), rtol=0,
-                               atol=1e-6)
+    np.testing.assert_array_equal(got.scores_np(), want.scores_np())
     out_nbrs = [[] for _ in range(13)]
     for s, t in WIKI_EDGES:
         out_nbrs[s].append(t)

@@ -1,4 +1,5 @@
-"""K1 and K2, in all their forms, against their plain versions, on the card.
+"""K1 and K2, in all their forms, and the K1 gather probes, against their
+plain versions, on the card.
 
 These need a CUDA device (a CUDA kernel has no CPU mode) and skip
 without one.  The file imports neither JAX nor graph_tpu, so it also
@@ -16,6 +17,7 @@ from graph_tpu_torch.engine.kernels import (
     INF_BITS, K1_WINDOW, LAUNCHES, k1_gather, k1_gather_plain,
     k1_gather_weighted, k1_gather_weighted_plain, k2_reduce, k2_reduce_min,
     k2_reduce_min_plain, k2_reduce_plain, k2_tile_cuts)
+from graph_tpu_torch.probes import kernels as probes
 from test_torch_tiles import TILE_CASES, _values, indptr_of
 
 
@@ -286,3 +288,61 @@ def test_k1_short_streams_on_card(cuda_device, form, m):
     got, want = _k1_call(form, *args, K1_WINDOW)
     torch.cuda.synchronize()
     assert _bits_equal(got, want)
+
+
+def _probe_stream(g, nrows, win):
+    """An in-range stream for every probe at window ``win``: idx < win,
+    lanemap's row field (bits 8-14) below win/128, bit 7 at random."""
+    idx = g.integers(0, win, (nrows, 128))
+    st = g.integers(0, win // 128, (nrows, 128)) << 8 | (idx & 255)
+    return idx.astype(np.uint16), st.astype(np.uint16)
+
+
+@pytest.mark.requires_cuda
+@pytest.mark.parametrize("offset", [0, 1])
+@pytest.mark.parametrize("nrows", [1, 31, 33, 1000])
+@pytest.mark.parametrize("win", [1024, 3072, 16384])
+def test_probes_match_plain_on_card(cuda_device, win, nrows, offset):
+    """Every probe at ragged row counts (chunks of 32 rows), windows of
+    one group, three groups and the largest, and x or t off 16-byte
+    alignment (storage offset 1)."""
+    g = np.random.default_rng(win + nrows + offset)
+    idx_np, st_np = _probe_stream(g, nrows, win)
+    idx, st = (torch.from_numpy(a).to(cuda_device) for a in (idx_np, st_np))
+    x = _view(g.random(win).astype(np.float32), offset, cuda_device)
+    before = dict(probes.LAUNCHES)
+    pairs = [(probes.lanemap(st, x), probes.lanemap_plain(st, x)),
+             (probes.sublane(idx, x), probes.sublane_plain(idx, x))]
+    for mode in probes.MODES:
+        pairs.append((probes.window_gather(idx, x, mode),
+                      probes.window_gather_plain(idx, x, mode)))
+    for rows in (1, 8, 128):
+        t = _view(g.random(rows * 128).astype(np.float32), offset,
+                  cuda_device).view(rows, 128)
+        pairs.append((probes.row_gather(idx, t),
+                      probes.row_gather_plain(idx, t)))
+    torch.cuda.synchronize()
+    for got, want in pairs:
+        assert got.shape == (nrows, 128) and _bits_equal(got, want)
+    assert {k: probes.LAUNCHES[k] - before[k] for k in before} == {
+        "probe_row_gather": 3, "probe_lanemap": 1,
+        "probe_window_gather": 2, "probe_sublane": 1}
+
+
+@pytest.mark.requires_cuda
+def test_probe_wrappers_reject_what_the_kernels_do_not_take(cuda_device):
+    idx = torch.zeros(4, 128, dtype=torch.uint16, device=cuda_device)
+    x = torch.zeros(1024, device=cuda_device)
+    with pytest.raises(TypeError):
+        probes.sublane(idx.to(torch.int32), x)
+    with pytest.raises(ValueError):
+        probes.lanemap(idx[:, :64], x)
+    with pytest.raises(ValueError):
+        probes.window_gather(idx, torch.zeros(16385, device=cuda_device),
+                             "rowscan")
+    with pytest.raises(ValueError):
+        probes.row_gather(idx, torch.zeros(129, 128, device=cuda_device))
+    with pytest.raises(ValueError):
+        probes.row_gather(idx.cpu(), torch.zeros(8, 128, device=cuda_device))
+    empty = idx[:0]
+    assert probes.sublane(empty, x).shape == (0, 128)
