@@ -56,8 +56,13 @@ The K1 gather probes (``graph_tpu_torch.probes``: the four kernels of
 ``scripts/perf_k1_{lanemap,rowmatch,sublane}.py``) run through their
 entry points at the scripts' windows and seeds, at 4,194,304 and
 67,108,864 slots, each exact against its plain version, beside K1's own
-rate; and one ``graph_tpu_torch.profile`` trace of the PageRank run gives
-the device's busy share and the kernels that took the most time.
+rate.  The K2 stream probes (the two kernels of the eight sites of
+``scripts/perf_k2_{io,io2,io3,io4,io5,streams}.py``) run their edge cases,
+then all six entry points at the scripts' sizes (the RMAT ones on the
+section layout of the scale-22 plan), each variant exact against its
+plain version, beside K2's own ns a slot and a 1 GB copy; and one
+``graph_tpu_torch.profile`` trace of the PageRank run gives the device's
+busy share and the kernels that took the most time.
 It prints one JSON line per phase; the line before the last lists the
 kernels, with each design's facts (K2's tile, K1's window and the share
 of slots it serves, a probe's window or depth), and the last line is
@@ -69,6 +74,7 @@ without a CUDA device.
 import dataclasses
 import gc
 import json
+import multiprocessing
 import os
 import subprocess
 import sys
@@ -1353,15 +1359,15 @@ def probe_edge_cases(dev, errs):
                  p.row_gather_plain(idx, t))
 
 
-def k1_probes_phase(dev, card, errs, k1_window):
+def k1_probes_phase(dev, errs):
     """The K1 gather probes through their entry points at the scripts'
     windows, depths and seeds, at 4,194,304 slots (the scripts' size) and
     67,108,864 (K1's at scale 22), each with the launch counts set to 0
     just before and read just after; every case exact against its plain
     version, the x[idx] shares of the scripts' findings, the bound and
-    the library yardstick (timed here, on the case's inputs).  Beside
-    them, K1's own rate at each window (the window_probe phase).
-    Returns the launches by size and the table rows' cases."""
+    the library yardstick (timed here, on the case's inputs).  Returns
+    the launches by size, the table rows' cases and the phase's line
+    (emitted later, beside K1's own rate at each window)."""
     from graph_tpu_torch import profile
     from graph_tpu_torch.probes import (
         BLK, K1_NBLK, NBLK, k1_lanemap, k1_rowmatch, k1_sublane,
@@ -1431,9 +1437,7 @@ def k1_probes_phase(dev, card, errs, k1_window):
         device_us[name] = {"launches_traced": calls,
                            "device_us_per_launch": per_launch}
     out[f"{NBLK * BLK}_slots"]["traced"] = device_us
-    emit({"phase": "k1_probes", "card": card, **out,
-          "k1_window_probe_pagerank": k1_window})
-    return launches, cases
+    return launches, cases, out
 
 
 def probe_library(res, idx, table):
@@ -1487,6 +1491,208 @@ def probe_rows(errs, launches, cases):
     return rows
 
 
+def k2_probe_edge_cases(dev, errs):
+    """Both stream kernels against their plain versions, bit for bit, on
+    arbitrary input: 43 sections (odd) in mids of 1, 40 (longer than a
+    piece: added pieces) and 2 sections; two and three passes; blocks
+    never zeroed from a nonzero init, and a block never touched; every T,
+    full and touched u16 and int32 sides, 640-wide touches, 1024-row
+    steps; the f32 adds from init 0, NaN and 1.5."""
+    import torch
+
+    from graph_tpu_torch.probes import k2_kernels as kk, k2_layout as kl
+
+    g = np.random.default_rng(31)
+    sm = np.array([0] + [1] * 40 + [2] * 2, np.int32)
+    rows = len(sm) * kl.SEC_R
+
+    def dev_t(a):
+        return torch.from_numpy(a).to(dev)
+
+    v_round = dev_t((g.random((rows, 128)) * 3.8 - 1.9).astype(np.float32))
+    v_trunc = dev_t((g.random((rows, 128)) * 6e3 - 3e3).astype(np.float32))
+    u16 = [dev_t(g.integers(0, 1 << 16, (rows, 128)).astype(np.uint16))
+           for _ in range(5)]
+    i32 = [dev_t(g.integers(-2**31, 2**31, (rows, 128)).astype(np.int32))
+           for _ in range(2)]
+    k = np.arange(len(sm))
+    never = kl.Steps(k * kl.SEC_R, sm.astype(np.int64),
+                     np.zeros(len(sm), np.bool_), kl.SEC_R, 4, 2)
+    cases = [  # (steps, v, sides, mode, read, init)
+        (kl.acc_steps(sm, 3), v_round, u16, "round", "full", 0),
+        (kl.k2_io4_multipass_steps(sm, 3, 3), v_round, u16, "round",
+         "touch", 7),
+        (never, v_trunc, u16[:3] + i32[:1], "trunc", "full", 12345),
+        (never, v_round, i32 + u16[:1], "bitcast", "touch", -(1 << 31)),
+        (kl.k2_io3_steps(sm, 3, "copy6w"), v_round, [torch.cat(u16, 1)],
+         "round", "touch", -5),
+        (kl.k2_io2_steps(sm, 3, "io2"), v_round, u16, "round", "touch", 0),
+        (kl.k2_io3_steps(sm, 3, "copy1"), v_round, [], "bitcast", "touch",
+         0),
+        (kl.k2_io_steps(np.arange(32) // 16, "F", 3), v_trunc, u16[:3],
+         "trunc", "full", 99)]
+    for steps, v, sides, mode, read, init in cases:
+        sched = kk.schedule(steps, dev)
+        hold(errs, "probe_sec_stream",
+             kk.sec_stream(v, sides, sched, mode, read, init),
+             kk.sec_stream_plain(v, sides, steps, mode, read, init))
+    f32_sides = [u16[0], i32[0], i32[1], u16[1]]
+    for steps, init in ((kl.k2_streams_steps(sm, 3), 0.0),
+                        (kl.k2_streams_steps(sm, 4), float("nan")),
+                        (never, 1.5)):
+        sched = kk.schedule(steps, dev, ordered=True)
+        hold(errs, "probe_sec_stream_f32",
+             kk.sec_stream_f32(v_round, f32_sides, sched, init),
+             kk.sec_stream_f32_plain(v_round, f32_sides, steps, init))
+
+
+#: Where each K2 stream kernel's table row is timed, and what it replaces.
+K2_PROBE_ROWS = {"probe_sec_stream": ("k2_io5", "read6"),
+                 "probe_sec_stream_f32": ("k2_streams",
+                                          "6 streams (14B/slot)")}
+K2_PROBE_REPLACES = {
+    "probe_sec_stream": ", ".join(
+        f"scripts/{site}" for site in (
+            "perf_k2_io.py:102", "perf_k2_io.py:120", "perf_k2_io2.py:73",
+            "perf_k2_io3.py:122", "perf_k2_io4.py:108",
+            "perf_k2_io4.py:145", "perf_k2_io5.py:103")),
+    "probe_sec_stream_f32": "scripts/perf_k2_streams.py:69"}
+
+
+def device_copy_rate(dev, nbytes=1 << 30):
+    """A 1 GB device-to-device ``copy_``: ms, and GB/s of the bytes read
+    and written."""
+    import torch
+
+    a = torch.empty(nbytes, dtype=torch.uint8, device=dev)
+    b = torch.empty_like(a)
+    ms = time_ms(lambda: b.copy_(a))
+    del a, b
+    return {"bytes": nbytes, "ms": ms, "gb_per_s": 2 * nbytes / ms / 1e6}
+
+
+def k2_probes_phase(dev, card, errs, indptr, k2_own):
+    """The K2 stream-floor probes through their six entry points at the
+    scripts' sizes, with the launch counts set to 0 just before and read
+    just after: ``perf_k2_io.py``'s synthetic streams (512 sections, 200
+    passes a launch), the section layout of the scale-22 plan
+    (``indptr``; one draw of contributions and side streams shared by the
+    four RMAT scripts), ``perf_k2_streams.py``'s 1,024 sections.  Every
+    variant exact against its plain version, with its bound, and for A the
+    library call ``v.to(torch.int32)`` a pass; beside them K2's own ns a
+    slot (``k2_own``: the kernel table's K2 rows) and a 1 GB copy.
+    Returns the launches, each kernel row's case and the launches by
+    entry point."""
+    import torch
+
+    from graph_tpu_torch.probes import (
+        k2_io, k2_io2, k2_io3, k2_io4, k2_io5, k2_kernels as kk,
+        k2_layout as kl, k2_streams)
+
+    cases, out = {}, {}
+
+    def observer(script):
+        def observe(res, inputs):
+            steps, v, _ = inputs
+            res["bound_ms"], res["bound_by"] = bound_of(res["port_bytes"], 0)
+            if res.get("variant") == "A":
+                per_pass = time_ms(lambda: v.to(torch.int32))
+                res["library"] = "v.to(torch.int32), a pass"
+                res["library_ms"] = per_pass * steps.passes
+            for name, where in K2_PROBE_ROWS.items():
+                if where == (script, res["label"]):
+                    cases[name] = (res, inputs)
+        return observe
+
+    kk.reset_launches()
+    t0 = time.perf_counter()
+    sec_mid, nmid = kl.sections(indptr)
+    inputs = kl.rmat_inputs(len(sec_mid), dev)
+    def on_layout(mod):
+        return lambda o: mod.bench(sec_mid, nmid, dev, observe=o,
+                                   inputs=inputs)
+
+    runs = {"k2_io": lambda o: k2_io.bench(device=dev, observe=o),
+            "k2_io2": on_layout(k2_io2), "k2_io3": on_layout(k2_io3),
+            "k2_io4": on_layout(k2_io4), "k2_io5": on_layout(k2_io5),
+            "k2_streams": lambda o: k2_streams.bench(device=dev, observe=o)}
+    secs, by_script = {}, {}
+    for name, run_script in runs.items():
+        t1 = time.perf_counter()
+        before = dict(kk.LAUNCHES)
+        out[name] = run_script(observer(name))
+        _sync()
+        secs[name] = time.perf_counter() - t1
+        by_script[name] = {k: kk.LAUNCHES[k] - before[k] for k in before}
+    launches = dict(kk.LAUNCHES)
+    for name, n in launches.items():
+        check(n >= 1, f"k2_probes: {name} launched {n} times")
+    for name, results in out.items():
+        for r in results:
+            check(r["exact"], f"k2_probes: {name} {r['label']} disagrees "
+                  "with its plain version")
+    check(set(cases) == set(K2_PROBE_ROWS),
+          f"k2_probes: table cases {sorted(cases)}")
+    del inputs
+    free_device()
+    copy = device_copy_rate(dev)
+    reads = {r["label"]: r for r in out["k2_io5"]}
+    floor = {label: {key: reads[label].get(key) for key in (
+                 "ms", "device_ms", "ns_per_slot", "slope_ns_per_slot",
+                 "port_gb_per_s", "device_gb_per_s")}
+             for label in ("read1", "read2", "read6")}
+    emit({"phase": "k2_probes", "card": card, "nsec": len(sec_mid),
+          "nmid": nmid, "s": time.perf_counter() - t0, "script_s": secs,
+          "launches": launches, "launches_by_script": by_script,
+          "copy_1gb": copy,
+          "k2_own": k2_own, "stream_floor": floor,
+          "cases": {name: [{k: v for k, v in r.items() if k != "kernel"}
+                           for r in results]
+                    for name, results in out.items()}})
+    return launches, cases, by_script
+
+
+def k2_probe_rows(errs, launches, cases, by_script):
+    """The two stream kernels' rows of the kernel table, each at its named
+    variant, held once more against its plain version there; each row's
+    launches by entry point."""
+    from graph_tpu_torch.probes import k2_kernels as kk
+    from graph_tpu_torch.probes.timing import graph_ms
+
+    rows = []
+    for name, (res, (steps, v, sides)) in cases.items():
+        f32 = name == "probe_sec_stream_f32"
+        sched = kk.schedule(steps, v.device, ordered=f32)
+        if f32:
+            def run(s=sched, v=v, sides=sides):
+                return kk.sec_stream_f32(v, sides, s)
+
+            def plain(steps=steps, v=v, sides=sides):
+                return kk.sec_stream_f32_plain(v, sides, steps)
+        else:
+            def run(s=sched, v=v, sides=sides, r=res):
+                return kk.sec_stream(v, sides, s, r["mode"], r["read"])
+
+            def plain(steps=steps, v=v, sides=sides, r=res):
+                return kk.sec_stream_plain(v, sides, steps, r["mode"],
+                                           r["read"])
+        hold(errs, name, run(), plain())
+        slots = res["slots"]
+        design = {k: res[k] for k in ("label", "mode", "read", "nsides",
+                                      "passes", "steps", "h", "nout")}
+        design["script"] = K2_PROBE_ROWS[name][0]
+        rows.append(row(name, "k2_probes", "k2_probes.cu",
+                        K2_PROBE_REPLACES[name], launches, errs, run, plain,
+                        "none: no single PyTorch call computes it",
+                        res["port_bytes"], slots * (1 + len(sides)),
+                        f"slots={slots}", design))
+        rows[-1]["device_ms"] = graph_ms(run, v.device, 20)
+        rows[-1]["launches_by_path"] = {
+            f"k2_probes ({script})": counts[name]
+            for script, counts in by_script.items() if counts[name]}
+    return rows
+
+
 def profile_phase(gtt, graph, cfg, card):
     """One ``graph_tpu_torch.profile.trace`` of the 20-iteration PageRank
     on the scale-22 plan (each iteration annotated by the port): the
@@ -1523,7 +1729,54 @@ def profile_phase(gtt, graph, cfg, card):
               if "k1_" in name or "k2_" in name)})
 
 
-def run():
+class RmatProcess:
+    """Graph500 RMAT at ``scale`` generated into ``cache_dir`` by a
+    process of its own, so that its host time overlaps the steps that need
+    no graph; :meth:`stop` ends it whatever happened."""
+
+    def __init__(self, scale, cache_dir):
+        self.scale, self.cache_dir = scale, cache_dir
+        ctx = multiprocessing.get_context("spawn")
+        self.seconds = ctx.Value("d", -1.0)
+        self.proc = ctx.Process(target=generate_rmat,
+                                args=(scale, cache_dir, self.seconds))
+        self.started = False
+
+    def start(self):
+        self.proc.start()
+        self.started = True
+
+    def result(self):
+        """(src, dst, seconds waited, seconds the generation took)."""
+        from graph_tpu_torch.generate import cached_rmat
+
+        t0 = time.perf_counter()
+        self.proc.join()
+        check(self.proc.exitcode == 0,
+              f"RMAT generation exited {self.proc.exitcode}")
+        wait_s = time.perf_counter() - t0
+        src, dst = cached_rmat(self.scale, self.cache_dir)
+        return src, dst, wait_s, self.seconds.value
+
+    def stop(self):
+        if self.started:
+            if self.proc.is_alive():
+                self.proc.terminate()
+            self.proc.join()
+
+
+def generate_rmat(scale, cache_dir, seconds):
+    """:class:`RmatProcess`'s target: the cached RMAT, its seconds into
+    the shared ``seconds``."""
+    sys.path.insert(0, ROOT)
+    from graph_tpu_torch.generate import cached_rmat
+
+    t0 = time.perf_counter()
+    cached_rmat(scale, cache_dir)
+    seconds.value = time.perf_counter() - t0
+
+
+def run(rmat):
     import torch
 
     if not torch.cuda.is_available():
@@ -1534,8 +1787,8 @@ def run():
         import graph_tpu_torch as gtt
         from graph_tpu_torch.algos.pagerank import _graph_engine
         from graph_tpu_torch.engine import _build, kernels
-        from graph_tpu_torch.generate import cached_rmat
         from graph_tpu_torch.native.build import build_library
+        from graph_tpu_torch.probes import k2_kernels as k2_probes
         from graph_tpu_torch.probes import kernels as probes
     except ImportError as exc:
         print(f"chip_smoke: graph_tpu_torch not found next to this script "
@@ -1546,8 +1799,11 @@ def run():
     print(card, flush=True)
     k = kernels
 
-    # 1. card and kernel build (one nvcc per source, all started together,
-    # and beside them one g++ per host C++ source)
+    # 1. RMAT scale 22 generated on the host in a process of its own while
+    # the graph-free steps run; card and kernel build (one nvcc per
+    # source, all started together, and beside them one g++ per host C++
+    # source)
+    rmat.start()
     t0 = time.perf_counter()
     with ThreadPoolExecutor(len(HOST_SOURCES)) as ex:
         host = [ex.submit(build_library, name) for name in HOST_SOURCES]
@@ -1566,10 +1822,23 @@ def run():
     emit({"phase": "kernels_edge_cases", "max_abs_err": dict(errs)})
     emit({"phase": "small_graphs", **small_graph_checks(gtt, dev)})
 
-    # 3. the PageRank path
+    # 3. what needs no graph, while RMAT is generated: the K1 gather
+    # probes (their edge cases first, not counted; the phase's line is
+    # printed in step 9, beside K1's own rate) and the K2 stream probes'
+    # edge cases (not counted)
+    probe_errs = {name: 0 for name in probes.LAUNCHES}
+    probe_edge_cases(dev, probe_errs)
+    probe_launches, cases, k1_out = k1_probes_phase(dev, probe_errs)
+    k1_rows = probe_rows(probe_errs, probe_launches, cases)
+    del cases
+    k2_errs = {name: 0 for name in k2_probes.LAUNCHES}
+    k2_probe_edge_cases(dev, k2_errs)
+    free_device()
+
+    # 4. the PageRank path
     n = 1 << SCALE
     t0 = time.perf_counter()
-    src, dst = cached_rmat(SCALE, os.path.join(ROOT, ".cache", "rmat"))
+    src, dst, rmat_wait_s, rmat_gen_s = rmat.result()
     rmat_s = time.perf_counter() - t0
     m = int(src.size)
     t0 = time.perf_counter()
@@ -1598,7 +1867,8 @@ def run():
     check(0.0 < total <= 1.0 + 1e-4, f"scores sum to {total}")
     gteps = m * ITERS / best / 1e9
     emit({"phase": "pagerank", "scale": SCALE, "n": n, "m": m,
-          "rmat_s": rmat_s, "build_directed_s": graph_s,
+          "rmat_s": rmat_s, "rmat_wait_s": rmat_wait_s,
+          "rmat_generate_s": rmat_gen_s, "build_directed_s": graph_s,
           "plan_build_s": plan_s, "gate_bad_rows": bad,
           "iterations": res.ran_iterations, "error": res.error,
           "score_sum": total, "run_s": runs, "best_s": best,
@@ -1606,19 +1876,19 @@ def run():
           "roofline_gteps_12B_per_edge": HBM_BYTES_PER_S / BYTES_PER_EDGE / 1e9,
           "launches": pr_launches})
 
-    # 4. the WCC and SSSP paths, on the same RMAT edges
+    # 5. the WCC and SSSP paths, on the same RMAT edges
     sym, wcc_launches, wcc_labels, wcc_rounds = wcc_phase(
         gtt, k, graph, src, dst, n)
     wgraph, start, weng, sssp_res, sssp_launches = sssp_phase(
         gtt, k, src, dst, n, dev)
 
-    # 5. the same graph from files, through the builder
+    # 6. the same graph from files, through the builder
     bld = builder_phase(gtt, k, dev, card, src, dst, n, graph, cfg, res,
                         wcc_labels)
     emit({"phase": "memory",
           "peak_mem_gb": torch.cuda.max_memory_allocated() / 1e9})
 
-    # 6. triangle count; the segment-op engines; the out-of-core engine
+    # 7. triangle count; the segment-op engines; the out-of-core engine
     triangles_phase(gtt, dev, src, dst, n)
     _, eng_launches = engines_phase(gtt, k, dev, graph, wgraph, start, res,
                                     wcc_labels, sssp_res)
@@ -1629,7 +1899,7 @@ def run():
     del wcc_labels
     free_device()
 
-    # 7. each kernel at its path's shapes: exactness, then times.  Each
+    # 8. each kernel at its path's shapes: exactness, then times.  Each
     # row counts every run of its path: the phase's own, the builder's,
     # the engines phase's plan runs and the out-of-core drivers'.
     by_path = {
@@ -1751,17 +2021,25 @@ def run():
             path: runs[t["name"]]
             for path, runs in by_path[t["path"].split()[0]].items()}
 
-    # 8. the K1 gather probes (their edge cases first, not counted), with
-    # K1's own rate at each window beside them; a profiler trace of the
-    # PageRank run
-    probe_errs = {name: 0 for name in probes.LAUNCHES}
-    probe_edge_cases(dev, probe_errs)
+    # 9. the K1 gather probes' line (step 3), with K1's own rate at each
+    # window beside them; the K2 stream probes, with K2's own rate beside
+    # them; a profiler trace of the PageRank run
     k1_window = {h: {**r, "ns_per_slot": r["ms"] * 1e6 / m,
                      "gb_per_s": (8 * m + 4 * n) / r["ms"] / 1e6}
                  for h, r in wprobe["pagerank"].items()}
-    probe_launches, cases = k1_probes_phase(dev, card, probe_errs, k1_window)
-    table += probe_rows(probe_errs, probe_launches, cases)
-    del cases
+    emit({"phase": "k1_probes", "card": card, **k1_out,
+          "k1_window_probe_pagerank": k1_window})
+    table += k1_rows
+    slots_of = {"pagerank": m, "wcc (op=imin)": ms_, "sssp (op=min)": m}
+    k2_own = {t["path"]: {"ms": t["ms"],
+                          "ns_per_slot": t["ms"] * 1e6 / slots_of[t["path"]],
+                          "gb_per_s": t["bytes"] / t["ms"] / 1e6}
+              for t in table if t["path"] in slots_of
+              and t["name"].startswith("k2_")}
+    k2_launches, k2_cases, k2_by_script = k2_probes_phase(
+        dev, card, k2_errs, plan.indptr, k2_own)
+    table += k2_probe_rows(k2_errs, k2_launches, k2_cases, k2_by_script)
+    del k2_cases
     free_device()
     profile_phase(gtt, graph, cfg, card)
 
@@ -1782,11 +2060,14 @@ def run():
 
 
 def main():
+    rmat = RmatProcess(SCALE, os.path.join(ROOT, ".cache", "rmat"))
     try:
-        return run()
+        return run(rmat)
     except Exception:  # any failed phase: report it and print no result
         traceback.print_exc()
         return 1
+    finally:
+        rmat.stop()
 
 
 if __name__ == "__main__":

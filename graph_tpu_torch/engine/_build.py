@@ -40,6 +40,8 @@ SIGNATURES = {
     "probe_lanemap": (_P, _P, _P, _I64, _I32, _P),
     "probe_window_gather": (_P, _P, _P, _I64, _I32, _I32, _P),
     "probe_sublane": (_P, _P, _P, _I64, _I32, _P),
+    "probe_sec_stream": (_P,) * 10 + (_I64,) + (_I32,) * 7 + (_P,),
+    "probe_sec_stream_f32": (_P,) * 10 + (_I64,) + (_I32,) * 5 + (_P,),
 }
 #: The source (``csrc/<source>.cu``) that defines each entry point.
 SOURCES = {
@@ -51,6 +53,8 @@ SOURCES = {
     "probe_lanemap": "k1_probes",
     "probe_window_gather": "k1_probes",
     "probe_sublane": "k1_probes",
+    "probe_sec_stream": "k2_probes",
+    "probe_sec_stream_f32": "k2_probes",
 }
 
 _libs: dict = {}

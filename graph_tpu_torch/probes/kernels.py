@@ -87,15 +87,21 @@ def _on_cpu(*tensors: torch.Tensor) -> bool:
     return all(t.device.type == "cpu" for t in tensors)
 
 
-def _check(name: str, t: torch.Tensor, dtype: torch.dtype,
-           device: torch.device, ok_shape: bool, shape: str) -> None:
+def _check(name: str, t: torch.Tensor, dtype, device: torch.device,
+           ok_shape: bool, shape: str, align: int = 1) -> None:
+    """Device, dtype (one, or a tuple of those allowed), shape and
+    contiguity, and the data pointer a multiple of ``align`` bytes."""
+    dtypes = dtype if isinstance(dtype, tuple) else (dtype,)
     if t.device != device:
         raise ValueError(f"{name} is on {t.device}, expected {device}")
-    if t.dtype != dtype:
-        raise TypeError(f"{name} has dtype {t.dtype}, expected {dtype}")
+    if t.dtype not in dtypes:
+        raise TypeError(f"{name} has dtype {t.dtype}, expected "
+                        f"{' or '.join(map(str, dtypes))}")
     if not ok_shape or not t.is_contiguous():
         raise ValueError(f"{name} must be a contiguous {shape} tensor, "
                          f"got shape {tuple(t.shape)}")
+    if t.data_ptr() % align:
+        raise ValueError(f"{name} must be {align}-byte aligned")
 
 
 def _check_stream(idx: torch.Tensor, device: torch.device) -> None:

@@ -1,5 +1,5 @@
-"""K1 and K2, in all their forms, and the K1 gather probes, against their
-plain versions, on the card.
+"""K1 and K2, in all their forms, the K1 gather probes and the K2 stream
+probes, against their plain versions, on the card.
 
 These need a CUDA device (a CUDA kernel has no CPU mode) and skip
 without one.  The file imports neither JAX nor graph_tpu, so it also
@@ -17,6 +17,7 @@ from graph_tpu_torch.engine.kernels import (
     INF_BITS, K1_WINDOW, LAUNCHES, k1_gather, k1_gather_plain,
     k1_gather_weighted, k1_gather_weighted_plain, k2_reduce, k2_reduce_min,
     k2_reduce_min_plain, k2_reduce_plain, k2_tile_cuts)
+from graph_tpu_torch.probes import k2_kernels as k2p, k2_layout
 from graph_tpu_torch.probes import kernels as probes
 from test_torch_tiles import TILE_CASES, _values, indptr_of
 
@@ -346,3 +347,87 @@ def test_probe_wrappers_reject_what_the_kernels_do_not_take(cuda_device):
         probes.row_gather(idx.cpu(), torch.zeros(8, 128, device=cuda_device))
     empty = idx[:0]
     assert probes.sublane(empty, x).shape == (0, 128)
+
+
+def _k2_case(g, nsteps, nout, passes, zero_p, rows=48, h=8):
+    """Random steps over ``rows`` rows of v: overlapping rows, chains of
+    up to ``passes * nsteps`` steps into ``nout`` blocks (one more block
+    is never touched)."""
+    return k2_layout.Steps(
+        g.integers(0, rows - h + 1, nsteps).astype(np.int64),
+        g.integers(0, nout, nsteps).astype(np.int64),
+        g.random(nsteps) < zero_p, h, nout + 1, passes)
+
+
+@pytest.mark.requires_cuda
+@pytest.mark.parametrize("seed", range(8))
+def test_sec_stream_matches_plain_on_card(cuda_device, seed):
+    """Both stream kernels on random step lists (chains longer than a
+    piece, some blocks never zeroed), every T with full and touched u16
+    and int32 sides (one 640 wide), a random init; the f32 kernel from 0,
+    NaN and a random init."""
+    g = np.random.default_rng(seed)
+    steps = _k2_case(g, int(g.integers(1, 120)), int(g.integers(1, 4)),
+                     int(g.integers(1, 4)), 0.05 * seed)
+    dev = cuda_device
+    v_round = torch.from_numpy(
+        (g.random((48, 128)) * 3.8 - 1.9).astype(np.float32)).to(dev)
+    u16 = [torch.from_numpy(g.integers(0, 1 << 16, (48, 128)).astype(
+        np.uint16)).to(dev) for _ in range(3)]
+    i32 = [torch.from_numpy(g.integers(-2**31, 2**31, (48, 128)).astype(
+        np.int32)).to(dev) for _ in range(2)]
+    init = int(g.integers(-2**31, 2**31))
+    sched = k2p.schedule(steps, dev)
+    before = dict(k2p.LAUNCHES)
+    pairs = []
+    for mode in k2p.MODES:
+        for read, sides in (("full", u16 + i32),
+                            ("touch", i32 + [torch.cat(u16 + u16[:2], 1)])):
+            pairs.append((k2p.sec_stream(v_round, sides, sched, mode, read,
+                                         init),
+                          k2p.sec_stream_plain(v_round, sides, steps, mode,
+                                               read, init)))
+    ordered = k2p.schedule(steps, dev, ordered=True)
+    for f_init in (0.0, float("nan"), float(g.random())):
+        pairs.append((k2p.sec_stream_f32(v_round, u16 + i32, ordered,
+                                         f_init),
+                      k2p.sec_stream_f32_plain(v_round, u16 + i32, steps,
+                                               f_init)))
+    torch.cuda.synchronize()
+    for got, want in pairs:
+        assert got.shape == (steps.nout * 8, 128) and _bits_equal(got, want)
+    assert {k: k2p.LAUNCHES[k] - before[k] for k in before} == {
+        "probe_sec_stream": 6, "probe_sec_stream_f32": 3}
+
+
+@pytest.mark.requires_cuda
+def test_sec_stream_wrappers_reject_what_the_kernels_do_not_take(
+        cuda_device):
+    g = np.random.default_rng(0)
+    steps = _k2_case(g, 10, 2, 1, 0.5)
+    dev = cuda_device
+    v = torch.zeros(49 * 128, device=dev)
+    side = torch.zeros(48, 128, dtype=torch.uint16, device=dev)
+    sched = k2p.schedule(steps, dev)
+    with pytest.raises(ValueError, match="aligned"):
+        k2p.sec_stream(v[1:1 + 48 * 128].view(48, 128), [side], sched,
+                       "round", "full")
+    v = v[:48 * 128].view(48, 128)
+    with pytest.raises(TypeError):
+        k2p.sec_stream(v, [side.to(torch.int64)], sched, "round", "full")
+    with pytest.raises(ValueError):
+        k2p.sec_stream(v, [torch.cat([side] * 5, 1)], sched, "round", "full")
+    with pytest.raises(ValueError):
+        k2p.sec_stream(v[:steps.rows_needed - 1], [], sched, "trunc", "full")
+    with pytest.raises(ValueError, match="ordered"):
+        k2p.sec_stream_f32(v, [side], sched)
+    with pytest.raises(ValueError, match="schedule"):
+        k2p.sec_stream(v, [side], k2p.schedule(steps, "cpu"), "round",
+                       "full")
+    empty = k2_layout.Steps(np.zeros(0, np.int64), np.zeros(0, np.int64),
+                            np.zeros(0, np.bool_), 8, 2)
+    before = dict(k2p.LAUNCHES)
+    out = k2p.sec_stream(v, [side], k2p.schedule(empty, dev), "round",
+                         "touch", 5)
+    assert out.shape == (16, 128) and bool((out == 5).all())
+    assert k2p.LAUNCHES == before
