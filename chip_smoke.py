@@ -60,7 +60,15 @@ rate.  The K2 stream probes (the two kernels of the eight sites of
 ``scripts/perf_k2_{io,io2,io3,io4,io5,streams}.py``) run their edge cases,
 then all six entry points at the scripts' sizes (the RMAT ones on the
 section layout of the scale-22 plan), each variant exact against its
-plain version, beside K2's own ns a slot and a 1 GB copy; and one
+plain version, beside K2's own ns a slot and a 1 GB copy.  The K2 stage
+probes (the two kernels of the seven sites of
+``scripts/perf_k2_{stages,route_ops,sec128}.py``, ``perf_k2v2_stages.py``
+and ``perf_transpose.py``: the TPU's K2 section program, stage by stage)
+run their edge cases and the three entry points that need no graph while
+RMAT is generated, then the two on a stand-in for the TPU plan's routed
+sections of the scale-22 plan (routed on the host by a thread of its own
+while the other paths run); each variant exact against its plain
+version, ``full`` equal to the port's K2 on every destination.  One
 ``graph_tpu_torch.profile`` trace of the PageRank run gives the device's
 busy share and the kernels that took the most time.
 It prints one JSON line per phase; the line before the last lists the
@@ -110,6 +118,9 @@ SWEEP_SCALES = (12, 14, 16, 18)
 #: |scatter - f64| <= SCATTER_RTOL * |f64| + SCATTER_ATOL.
 SCATTER_RTOL = 1e-4
 SCATTER_ATOL = 1e-9
+#: Timed calls a variant of the stage probes on the RMAT stand-in (their
+#: scripts' own count, 17 at scale 22, cut for the command's time).
+STAGE_RMAT_REPS = 5
 #: The kernels each path must launch at least once per iteration.
 PATH_KERNELS = {"pagerank": ("k1_gather", "k2_reduce"),
                 "wcc": ("k1_gather", "k2_reduce_min"),
@@ -124,8 +135,9 @@ PATH_KERNELS = {"pagerank": ("k1_gather", "k2_reduce"),
 WIKI = np.array([(1, 2), (2, 1), (4, 0), (4, 1), (5, 4), (5, 1), (5, 6),
                  (6, 1), (6, 5), (7, 1), (7, 5), (8, 1), (8, 5), (9, 1),
                  (9, 5), (10, 1), (10, 5), (11, 5), (12, 5)])
-#: The port's host C++ (the edge-list parser, the host CSR builder).
-HOST_SOURCES = ("edgelist_parser.cpp", "host_csr.cpp")
+#: The port's host C++ (the edge-list parser, the host CSR builder, the
+#: K2 stage probes' section router).
+HOST_SOURCES = ("edgelist_parser.cpp", "host_csr.cpp", "edge_plan.cpp")
 #: The reference's SSSP golden (tests/test_sssp.py): a..f = 0..5.
 GOLDEN_EDGES = np.array([(0, 1, 4.0), (0, 2, 2.0), (1, 2, 5.0), (1, 3, 10.0),
                          (2, 4, 3.0), (3, 5, 11.0), (4, 3, 4.0)])
@@ -1693,6 +1705,293 @@ def k2_probe_rows(errs, launches, cases, by_script):
     return rows
 
 
+def k2_stage_edge_cases(dev, errs, routed):
+    """Both stage kernels against their plain versions, bit for bit, on
+    arbitrary input: one to three sections, a mid of one section, a block
+    never touched, real routes (``routed``: ``k2_routes.sec128_inputs`` of
+    two 512-row sections) and random ones (not permutations), blocks never
+    zeroed from a nonzero init over two passes, the scans truncated (lane
+    and row steps), the compaction with random windows, u8 middles, and
+    four outputs."""
+    import torch
+
+    from graph_tpu_torch.probes import k2_routes as kr
+    from graph_tpu_torch.probes import k2_stage_kernels as ks
+    from graph_tpu_torch.probes.k2_layout import Steps, first_of_mid
+
+    g = np.random.default_rng(41)
+
+    def t(a):
+        return torch.from_numpy(np.ascontiguousarray(a)).to(dev)
+
+    def steps(rows, sm, nout, zero=None, passes=1, first=0):
+        sm = np.asarray(sm, np.int64)
+        z = first_of_mid(sm) if zero is None else zero
+        return Steps((first + np.arange(len(sm), dtype=np.int64)) * rows, sm,
+                     np.asarray(z, np.bool_), rows, nout, passes)
+
+    real512 = [t(routed[k]) for k in ("wa", "wb", "ss", "wa2", "wb2")]
+    real128 = [t(routed[k]) for k in ("wa_2", "m1_2", "ss_2", "wa2_2",
+                                      "m2_2")]
+    rand = [t(g.integers(0, 1 << 16, (3 * 512, 128)).astype(np.uint16))
+            for _ in range(5)]
+    vf = t((g.random((3 * 512, 128)) * 3.8 - 1.9).astype(np.float32))
+    vi = t(g.integers(-2**31, 2**31, (3 * 512, 128)).astype(np.int32))
+    meta = kr.stages_meta(3).reshape(3, 129)
+    meta[:, 1:65] = g.integers(0, 48, (3, 64)) * 1024
+    meta[:, 65:] = g.integers(0, 3, (3, 64))
+    meta = meta.reshape(-1)
+    # (steps, init): one section; two into the second of two blocks; three
+    # with a mid of one section; three never zeroed over two passes
+    two = [(steps(512, [0], 1), 0), (steps(512, [1, 1], 2), 7)]
+    three = two + [(steps(512, [0, 1, 1], 2), -3),
+                   (steps(512, [0, 0, 1], 3, [False] * 3, 2), 12345)]
+    programs = list(ks.STAGES.values()) + [
+        ks.K2V2["full"], ks.FULL_INT, ks.ROUTE_OPS["c_roll"],
+        ks.ROUTE_OPS["taa2"], ks.TRANSPOSE["t512x2"][1],
+        ks.TRANSPOSE["taa512"][1],
+        (("load", "round", 1), *ks.route(1, 2), ("scan", 3, 5, 1)),
+        (("load", "round", 1), *ks.route(1, 2), ("scan", 3, 3, 0))]
+    for sides, layouts in ((real512, two), (rand, three)):
+        for program in programs:
+            v = vi if program[0][1] == "int" else vf
+            m = meta if any(op[0] == "compact" for op in program) else None
+            for st, init in layouts:
+                sched = ks.schedule([st], dev, m)
+                hold(errs, "probe_sec_route",
+                     ks.sec_route(v, sides, program, sched, init),
+                     ks.stage_plain(v, sides, program, [st], sched.meta,
+                                    init)[0])
+    st = steps(512, [0], 1)
+    hold(errs, "probe_sec_route",
+         ks.sec_route(vi, real512[1:2], ks.C_ONLY, ks.schedule([st], dev)),
+         ks.stage_plain(vi, real512[1:2], ks.C_ONLY, [st])[0])
+    rand128 = [rand[0], rand[1].to(torch.uint8) & 127, rand[2], rand[3],
+               rand[4].to(torch.uint8) & 127]
+    quad = [steps(128, [i], 4, first=i) for i in range(4)]
+    for sides in (real128, rand128):
+        for stages, ls, rs in ((4, 7, 7), (1, 7, 7), (2, 7, 7), (3, 7, 7),
+                               (4, 5, 1), (4, 7, 3), (3, 7, 0)):
+            program = ks.sec128_program(stages, ls, rs)
+            for sl, init in (([steps(128, [0, 1, 1], 3)], 0),
+                             ([steps(128, [1, 1], 2, [False] * 2, 2)], -5),
+                             (quad, 1 << 30)):
+                outs = ks.sec128(vi, sides, program, ks.schedule(sl, dev),
+                                 init)
+                for got, want in zip(outs, ks.stage_plain(
+                        vi, sides, program, sl, None, init)):
+                    hold(errs, "probe_sec128", got, want)
+
+
+#: Each stage-probe site's table row: (kernel, entry point, case label,
+#: the TPU kernel it replaces).
+K2_STAGE_ROWS = (
+    ("probe_sec_route", "k2_stages", "compact",
+     "scripts/perf_k2_stages.py:66"),
+    ("probe_sec_route", "k2v2_stages", "full",
+     "scripts/perf_k2v2_stages.py:86"),
+    ("probe_sec_route", "k2_route_ops", "both_routes",
+     "scripts/perf_k2_route_ops.py:113"),
+    ("probe_sec_route", "k2_route_ops", "c_only",
+     "scripts/perf_k2_route_ops.py:167"),
+    ("probe_sec128", "k2_sec128", "sec128",
+     "scripts/perf_k2_sec128.py:159"),
+    ("probe_sec128", "k2_sec128", "quad(7,7)",
+     "scripts/perf_k2_sec128.py:218"),
+    ("probe_sec_route", "transpose", "t512x2",
+     "scripts/perf_transpose.py:33"))
+
+
+def k2_stages_graph_free(dev, sec128_inputs, stages_inputs):
+    """The stage probes that need no graph, through their entry points at
+    the scripts' sizes, with the counts set to 0 just before and read just
+    after: ``perf_k2_stages.py``'s 512 synthetic sections x 150 passes,
+    ``perf_k2_sec128.py``'s 8 + 32 ``gen_keys`` sections,
+    ``perf_transpose.py``'s 128 blocks.  Returns (results by entry point,
+    each case's inputs by (entry point, label), launches, seconds by entry
+    point, launches by entry point)."""
+    from graph_tpu_torch.probes import (k2_sec128, k2_stage_kernels as ks,
+                                        k2_stages, transpose)
+
+    cases, out, secs, by_script = {}, {}, {}, {}
+
+    def observer(script):
+        def observe(res, inputs):
+            cases[(script, res["label"])] = (res, inputs)
+        return observe
+
+    ks.reset_launches()
+    for name, fn in (("k2_stages", lambda o: k2_stages.bench(
+                         device=dev, observe=o, inputs=stages_inputs)),
+                     ("k2_sec128", lambda o: k2_sec128.bench(
+                         device=dev, observe=o, inputs=sec128_inputs)),
+                     ("transpose", lambda o: transpose.bench(
+                         device=dev, observe=o))):
+        t1 = time.perf_counter()
+        before = dict(ks.LAUNCHES)
+        out[name] = fn(observer(name))
+        _sync()
+        secs[name] = time.perf_counter() - t1
+        by_script[name] = {k: ks.LAUNCHES[k] - before[k] for k in before}
+    return out, cases, dict(ks.LAUNCHES), secs, by_script
+
+
+def k2_stages_phase(dev, card, graph_free, routing, indptr, k2_own):
+    """The stage probes on the routed stand-in of the scale-22 plan
+    (``routing``: the stand-in and the host thread routing it, started
+    when the plan was built), with the counts set to 0 just before and
+    read just after; then every result, ``graph_free``'s included,
+    checked: each variant exact against its plain version, ``full`` equal
+    to the port's K2 (``k2_reduce``) on every destination (``indptr``: the
+    plan's), the C stage alone to numpy, both forms of
+    ``perf_k2_sec128.py`` to numpy's sums and the port's K2.  Emits the
+    phase's line and returns (launches, each case's inputs, the routed
+    layout, launches by entry point)."""
+    import torch
+
+    from graph_tpu_torch.engine import kernels
+    from graph_tpu_torch.probes import (k2_route_ops, k2_routes as kr,
+                                        k2_stage_kernels as ks, k2v2_stages)
+
+    t0 = time.perf_counter()
+    out, cases, launches_a, secs, by_script = graph_free
+    stand_in, fut = routing
+    streams, route_s = fut.result()
+    wait_s = time.perf_counter() - t0
+    layout = kr.routed_layout(stand_in, streams, route_s, dev)
+    del streams
+
+    def observe_as(script):
+        def observe(res, inputs):
+            cases[(script, res["label"])] = (res, inputs)
+        return observe
+
+    ks.reset_launches()
+    for name, mod in (("k2v2_stages", k2v2_stages),
+                      ("k2_route_ops", k2_route_ops)):
+        t1 = time.perf_counter()
+        before = dict(ks.LAUNCHES)
+        out[name] = mod.bench(layout, dev, reps=STAGE_RMAT_REPS,
+                              observe=observe_as(name))
+        _sync()
+        secs[name] = time.perf_counter() - t1
+        by_script[name] = {k: ks.LAUNCHES[k] - before[k] for k in before}
+    launches = {k: launches_a[k] + ks.LAUNCHES[k] for k in launches_a}
+    for name, n in launches.items():
+        check(n >= 1, f"k2_stages: {name} launched {n} times")
+    for name, results in out.items():
+        for r in results:
+            check(r["exact"], f"k2_stages: {name} {r['label']} disagrees "
+                  "with its plain version")
+    check(out["k2_route_ops"][0]["numpy_exact"],
+          "k2_stages: the C stage alone disagrees with numpy")
+    check(out["k2_sec128"][0]["numpy_exact"],
+          "k2_stages: k2_sec128's forms disagree with numpy's sums")
+    full = next(r for r in out["k2v2_stages"] if r["label"] == "full")
+    n = indptr.numel() - 1
+    y = full["result"][0].view(-1)
+    check(torch.equal(y[:n], kernels.k2_reduce(
+        kr.quanta_in_csr_order(layout), indptr)),
+          "k2_stages: full disagrees with k2_reduce")
+    check(bool((y[n:] == 0).all()),
+          "k2_stages: full wrote past the last destination")
+    for _, script, label, _ in K2_STAGE_ROWS:
+        check((script, label) in cases, f"k2_stages: no case {label}")
+    emit({"phase": "k2_stages", "card": card, "nsec": layout.nsec,
+          "nmid": layout.nmid, "route_s": layout.route_s,
+          "route_wait_s": wait_s, "s": time.perf_counter() - t0,
+          "script_s": secs, "launches": launches,
+          "launches_by_script": by_script, "k2_own": k2_own,
+          "cases": {name: [{k: v for k, v in r.items()
+                            if k not in ("run", "plain", "result",
+                                         "inputs")} for r in rs]
+                    for name, rs in out.items()}})
+    return launches, cases, layout, by_script
+
+
+def k2_stage_rows(errs, launches, cases, layout, stand_in, sec128_inputs,
+                  by_script):
+    """The seven stage-probe sites' rows of the kernel table, each at its
+    named case, held once more against its plain version there, with
+    each row's launches by entry point and the card's own time a call.
+    The library yardstick: ``index_add_`` of the quanta into the
+    destinations for ``full``, ``k2_128`` and ``k2_quad`` (the same sums;
+    the quantization and routing are not in it), ``torch.gather`` by the
+    precomputed rows for the C stage alone, one ``transpose(1, 2)
+    .contiguous()`` for ``t512x2`` (half its work)."""
+    import torch
+
+    from graph_tpu_torch.probes.timing import graph_ms
+
+    rows = []
+    for kernel, script, label, replaces in K2_STAGE_ROWS:
+        res, (_, v, sides, _) = cases[(script, label)]
+        run, plain = res["run"], res["plain"]
+        for got, want in zip(run(), plain()):
+            hold(errs, kernel, got, want)
+        what, call = library_call(label, v, sides, layout, stand_in,
+                                  sec128_inputs)
+        bound, by = bound_of(res["bytes"], res["ops"])
+        rows.append({
+            "name": kernel, "path": "k2_stages", "route": "cuda",
+            "source": "graph_tpu_torch/csrc/k2_stage_probes.cu",
+            "replaces": replaces, "launches": launches[kernel],
+            "max_abs_err": errs[kernel], "ms": time_ms(run, 5),
+            "plain_ms": time_ms(plain, 1), "bound_ms": bound,
+            "bound_by": by,
+            "library_ms": None if call is None else time_ms(call, 5),
+            "library": what, "bytes": res["bytes"], "ops": res["ops"],
+            "shapes": f"slots={res['slots']}", "script": script,
+            "label": label, "rows": res["rows"], "passes": res["passes"],
+            "steps": res["steps"], "outputs": res["outputs"],
+            "device_ms": graph_ms(run, v.device, 5),
+            "launches_by_path": {f"k2_stages ({s})": c[kernel]
+                                 for s, c in by_script.items() if c[kernel]}})
+        torch.cuda.empty_cache()
+    return rows
+
+
+def _index_add(keys, sec_mid, mid, values, dev):
+    """``index_add_`` of ``values`` (one a slot) into block ``sec_mid[k] *
+    mid + key`` of each section k's keys (pads into one slot past the
+    end): the call, timed as the yardstick."""
+    import torch
+
+    k = torch.from_numpy(np.ascontiguousarray(keys)).to(dev).view(
+        len(sec_mid), -1).long()
+    sm = torch.from_numpy(np.asarray(sec_mid)).to(dev).long()[:, None]
+    size = (int(np.max(sec_mid)) + 1) * mid
+    index = torch.where((k >= 0) & (k < mid), sm * mid + k, size).view(-1)
+    vals = values.reshape(-1)
+    return lambda: torch.zeros(size + 1, dtype=torch.int32,
+                               device=dev).index_add_(0, index, vals)
+
+
+def library_call(label, v, sides, layout, stand_in, z):
+    """(what, call) of the one PyTorch call that computes a row's
+    function, or (why not, None)."""
+    import torch
+
+    dev = v.device
+    if label == "full":
+        q = torch.round(layout.v * float(1 << 30)).to(torch.int32)
+        return ("index_add_ of the quanta", _index_add(
+            stand_in.keys, stand_in.sec_mid, 65536, q, dev))
+    if label in ("sec128", "quad(7,7)"):
+        return ("index_add_ of the contributions", _index_add(
+            z["keys128"], np.arange(len(z["keys128"])), 16384, v, dev))
+    if label == "c_only":
+        r = torch.arange(512, device=dev)[:, None]
+        idx = (r & ~3) | ((sides[0].to(torch.int64) >> 7) & 3)
+        return ("torch.gather by the precomputed rows",
+                lambda: torch.gather(v, 0, idx))
+    if label == "t512x2":
+        return ("v.view(-1, 512, 128).transpose(1, 2).contiguous(), one "
+                "transpose", lambda: v.view(-1, 512, 128).transpose(
+                    1, 2).contiguous())
+    return ("none: no single PyTorch call computes it", None)
+
+
 def profile_phase(gtt, graph, cfg, card):
     """One ``graph_tpu_torch.profile.trace`` of the 20-iteration PageRank
     on the scale-22 plan (each iteration annotated by the port): the
@@ -1789,6 +2088,8 @@ def run(rmat):
         from graph_tpu_torch.engine import _build, kernels
         from graph_tpu_torch.native.build import build_library
         from graph_tpu_torch.probes import k2_kernels as k2_probes
+        from graph_tpu_torch.probes import k2_routes
+        from graph_tpu_torch.probes import k2_stage_kernels as k2_stage
         from graph_tpu_torch.probes import kernels as probes
     except ImportError as exc:
         print(f"chip_smoke: graph_tpu_torch not found next to this script "
@@ -1834,6 +2135,14 @@ def run(rmat):
     k2_errs = {name: 0 for name in k2_probes.LAUNCHES}
     k2_probe_edge_cases(dev, k2_errs)
     free_device()
+    # the K2 stage probes' edge cases (not counted), then the three entry
+    # points that need no graph (their line is printed in step 9)
+    stage_errs = {name: 0 for name in k2_stage.LAUNCHES}
+    k2_stage_edge_cases(dev, stage_errs, k2_routes.sec128_inputs(2))
+    sec128_in = k2_routes.sec128_inputs()
+    stage_graph_free = k2_stages_graph_free(dev, sec128_in,
+                                            k2_routes.stages_inputs())
+    free_device()
 
     # 4. the PageRank path
     n = 1 << SCALE
@@ -1849,6 +2158,14 @@ def run(rmat):
     eng = _graph_engine(graph)  # the engine page_rank builds and caches
     _sync()
     plan_s = time.perf_counter() - t0
+    # the K2 stage probes' stand-in of the plan's routed sections: its
+    # keys on the card, routed on the host by a thread of its own (the
+    # native router releases the GIL) while the next steps run
+    stand_in = k2_routes.stand_in_keys(eng.plan.indptr, eng.plan.slot_src)
+    route_pool = ThreadPoolExecutor(1)
+    routing = (stand_in, route_pool.submit(
+        k2_routes.route_stand_in, stand_in, max(1, (os.cpu_count() or 2) - 1)))
+    route_pool.shutdown(wait=False)
     x_t, bad = gate(eng, src, dst, n, dev)
 
     cfg = gtt.PageRankConfig(engine="plan", max_iterations=ITERS,
@@ -2040,6 +2357,13 @@ def run(rmat):
         dev, card, k2_errs, plan.indptr, k2_own)
     table += k2_probe_rows(k2_errs, k2_launches, k2_cases, k2_by_script)
     del k2_cases
+    free_device()
+    st_launches, st_cases, st_layout, st_by = k2_stages_phase(
+        dev, card, stage_graph_free, routing, plan.indptr, k2_own)
+    del stage_graph_free
+    table += k2_stage_rows(stage_errs, st_launches, st_cases, st_layout,
+                           routing[0], sec128_in, st_by)
+    del st_cases, st_layout, routing
     free_device()
     profile_phase(gtt, graph, cfg, card)
 

@@ -42,6 +42,8 @@ SIGNATURES = {
     "probe_sublane": (_P, _P, _P, _I64, _I32, _P),
     "probe_sec_stream": (_P,) * 10 + (_I64,) + (_I32,) * 7 + (_P,),
     "probe_sec_stream_f32": (_P,) * 10 + (_I64,) + (_I32,) * 5 + (_P,),
+    "probe_sec_route": (_P,) * 15 + (_I64,) + (_I32,) * 4 + (_P,),
+    "probe_sec128": (_P,) * 15 + (_I64,) + (_I32,) * 4 + (_P,),
 }
 #: The source (``csrc/<source>.cu``) that defines each entry point.
 SOURCES = {
@@ -55,6 +57,8 @@ SOURCES = {
     "probe_sublane": "k1_probes",
     "probe_sec_stream": "k2_probes",
     "probe_sec_stream_f32": "k2_probes",
+    "probe_sec_route": "k2_stage_probes",
+    "probe_sec128": "k2_stage_probes",
 }
 
 _libs: dict = {}

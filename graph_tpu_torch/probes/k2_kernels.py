@@ -156,23 +156,24 @@ class Schedule:
         return self.chain.device
 
 
-def _cut(lo: int, hi: int, n: int) -> list:
+def _cut(lo: int, hi: int, n: int, piece_steps: int) -> list:
     """[lo, hi) of a block's chain (n steps a pass) cut at every pass and
-    into at most ``PIECE_STEPS`` steps: (start, size) pairs."""
+    into at most ``piece_steps`` steps: (start, size) pairs."""
     out = []
     a = lo
     while a < hi:
-        end = min(hi, (a // n + 1) * n, a + PIECE_STEPS)
+        end = min(hi, (a // n + 1) * n, a + piece_steps)
         out.append((a, end - a))
         a = end
     return out
 
 
-def schedule(steps: Steps, device, ordered: bool = False) -> Schedule:
+def schedule(steps: Steps, device, ordered: bool = False,
+             piece_steps: int = PIECE_STEPS) -> Schedule:
     """Group the steps by out block, in grid order, over every pass; cut
     each block's chain at its last zero into a dead part (read, its value
     overwritten) and a live part, and both at every pass and into pieces
-    of at most ``PIECE_STEPS`` steps (the live part whole when
+    of at most ``piece_steps`` steps (the live part whole when
     ``ordered``).  A block with one live piece stores it; with several,
     each piece adds.  Pieces are ordered by pass, then block, so the
     card's blocks stream the rows pass after pass, as the TPU's grid
@@ -189,9 +190,10 @@ def schedule(steps: Steps, device, ordered: bool = False) -> Schedule:
         z = np.nonzero(steps.zero[ks])[0]
         live0 = (p - 1) * n + int(z[-1]) if len(z) else 0
         total = p * n
-        for a, size in _cut(0, live0, n):
+        for a, size in _cut(0, live0, n, piece_steps):
             pieces.append((a // n, b, off + a, size, DEAD))
-        cuts = [(live0, total - live0)] if ordered else _cut(live0, total, n)
+        cuts = ([(live0, total - live0)] if ordered
+                else _cut(live0, total, n, piece_steps))
         kind = STORE if len(cuts) == 1 else ADD
         flags = ZEROED if len(z) else 0
         for i, (a, size) in enumerate(cuts):

@@ -11,6 +11,7 @@ import torch
 from graph_tpu_torch.device import resolve_device
 from graph_tpu_torch.probes import BLK, NBLK
 from graph_tpu_torch.probes import k2_kernels as kk
+from graph_tpu_torch.probes import k2_stage_kernels as ks
 from graph_tpu_torch.probes.k2_layout import LANES
 
 #: Timed calls a case (the scripts' 40 repetitions).
@@ -152,6 +153,61 @@ def stream_case(label: str, steps, v: torch.Tensor, sides, *, mode: str,
         res["note"] = note
     print(f"{line} exact={exact}{' ' + note if note else ''}", flush=True)
     return res
+
+
+def stage_case(label: str, program, steps_list, v: torch.Tensor, sides, *,
+               device: torch.device, reps: int, meta=None) -> dict:
+    """One K2 stage-probe variant: ``program`` (module
+    :mod:`graph_tpu_torch.probes.k2_stage_kernels`) over one :class:`Steps`
+    a output, through ``probe_sec_route`` (512-row steps) or
+    ``probe_sec128`` (128), against its plain version (``exact``: the same
+    bits in every output), then its mean time a call over ``reps`` calls
+    and, on a card, the card's own time a call (``device_ms``).  ``slots``
+    are the section slots a call computes (over its passes); ``bytes``
+    what it must move, ``ops`` its integer operations.  Prints the case's
+    line and returns it, with ``result`` (the kernel's outputs) and the
+    calls ``run`` and ``plain``."""
+    rows = steps_list[0].h
+    sched = ks.schedule(steps_list, device, meta)
+    name = "probe_sec_route" if rows == 512 else "probe_sec128"
+
+    def kernel():
+        if rows == 512:
+            return [ks.sec_route(v, sides, program, sched)]
+        return ks.sec128(v, sides, program, sched)
+
+    def plain():
+        return ks.stage_plain(v, sides, program, steps_list, sched.meta)
+
+    got = kernel()
+    exact = all(torch.equal(g, w) for g, w in zip(got, plain()))
+    slots = sum(s.nsteps * s.passes * s.h * LANES for s in steps_list)
+    nbytes = ks.moved_bytes(program, steps_list, v, sides)
+    ms = time_ms(kernel, device, reps)
+    res = {"label": label, "kernel": name, "rows": rows, "slots": slots,
+           "reps": reps, "ms": ms, "ns_per_slot": ms * 1e6 / slots,
+           "bytes": nbytes, "gb_per_s": nbytes / ms / 1e6,
+           "ops": ks.operations(program, steps_list), "exact": exact,
+           "outputs": len(steps_list), "passes": steps_list[0].passes,
+           "steps": steps_list[0].nsteps}
+    line = (f"{label:12s}: {ms:9.4f} ms x{reps} -> "
+            f"{res['ns_per_slot']:.5f} ns/slot (moved "
+            f"{nbytes / slots:.3f} B/slot = {res['gb_per_s']:.0f} GB/s)")
+    if device.type == "cuda":
+        dms = res["device_ms"] = graph_ms(kernel, device, reps)
+        res["device_ns_per_slot"] = dms * 1e6 / slots
+        line += f" device {dms:.4f} ms = {res['device_ns_per_slot']:.5f} ns/slot"
+    print(f"{line} exact={exact}", flush=True)
+    res["run"], res["plain"], res["result"] = kernel, plain, got
+    return res
+
+
+def deltas(results, pairs) -> str:
+    """The scripts' closing line: ``name +delta`` ns a slot for each
+    (name, base) pair of labels."""
+    ns = {r["label"]: r["ns_per_slot"] for r in results}
+    return "  ".join(f"{a} {ns[a] - ns[b]:+.5f}" for a, b in pairs
+                     if a in ns and b in ns) + " ns/slot"
 
 
 def card_name(device: torch.device) -> str:

@@ -431,3 +431,74 @@ def test_sec_stream_wrappers_reject_what_the_kernels_do_not_take(
                          "touch", 5)
     assert out.shape == (16, 128) and bool((out == 5).all())
     assert k2p.LAUNCHES == before
+
+
+def _stage_programs():
+    """(rows, program, sides as u16 / u8 dtypes) of every stage kind."""
+    from graph_tpu_torch.probes import k2_stage_kernels as ks
+
+    out = [(512, p) for p in ks.STAGES.values()]
+    out += [(512, ks.K2V2["full"]), (512, ks.ROUTE_OPS["taa2"]),
+            (512, ks.ROUTE_OPS["c_roll"]), (512, ks.ROUTE_OPS["both_routes"]),
+            (512, ks.FULL_INT), (512, ks.C_ONLY)]
+    out += [(128, ks.sec128_program(s, ls, rs))
+            for s, ls, rs in ((4, 7, 7), (1, 7, 7), (3, 5, 2))]
+    out += list(ks.TRANSPOSE.values())
+    return out
+
+
+@pytest.mark.requires_cuda
+@pytest.mark.parametrize("seed", range(3))
+def test_stage_probes_match_plain_on_card(cuda_device, seed):
+    """Every stage kind of both stage kernels on random sides (routes that
+    are no permutations, u8 and u16), random steps over four sections
+    (chains longer than a piece, blocks never zeroed, overlapping
+    sections) into one to four outputs, a random init; ``meta`` with
+    random windows inside the section."""
+    from graph_tpu_torch.probes import k2_routes, k2_stage_kernels as ks
+
+    g = np.random.default_rng(seed)
+    dev = cuda_device
+    nsec = 4
+
+    def t(a):
+        return torch.from_numpy(a).to(dev)
+
+    vf = t((g.random((nsec * 512, 128)) * 3.8 - 1.9).astype(np.float32))
+    vi = t(g.integers(-2**31, 2**31, (nsec * 512, 128)).astype(np.int32))
+    u16 = [t(g.integers(0, 1 << 16, (nsec * 512, 128)).astype(np.uint16))
+           for _ in range(5)]
+    u16[2] = t(np.sort(g.integers(0, 1 << 16, (nsec * 512, 128)).astype(
+        np.uint16), axis=None).reshape(-1, 128))
+    meta = k2_routes.stages_meta(nsec).reshape(nsec, 129)
+    meta[:, 1:65] = g.integers(0, 48, (nsec, 64)) * 1024
+    meta[:, 65:] = g.integers(0, 3, (nsec, 64))
+    meta = meta.reshape(-1)
+    init = int(g.integers(-2**31, 2**31))
+    before = dict(ks.LAUNCHES)
+    launched = {k: 0 for k in before}
+    for rows, program in _stage_programs():
+        n = nsec * 512 // rows
+        nouts = 1 if rows == 512 else int(g.integers(1, 5))
+        steps_list = [k2_layout.Steps(
+            g.integers(0, n, 40).astype(np.int64) * rows,
+            g.integers(0, 3, 40).astype(np.int64), g.random(40) < 0.1, rows,
+            4, int(g.integers(1, 3))) for _ in range(nouts)]
+        compact = any(op[0] == "compact" for op in program)
+        sched = ks.schedule(steps_list, dev, meta if compact else None)
+        v = vi if program[0][1] == "int" else vf
+        sides = u16 if rows == 512 else [u16[0], u16[1].to(torch.uint8) & 127,
+                                         u16[2], u16[3], u16[4].to(
+                                             torch.uint8) & 127]
+        if rows == 512:
+            got = [ks.sec_route(v, sides, program, sched, init)]
+            launched["probe_sec_route"] += 1
+        else:
+            got = ks.sec128(v, sides, program, sched, init)
+            launched["probe_sec128"] += 1
+        want = ks.stage_plain(v, sides, program, steps_list, sched.meta,
+                              init)
+        torch.cuda.synchronize()
+        for a, b in zip(got, want):
+            assert _bits_equal(a, b), program
+    assert {k: ks.LAUNCHES[k] - before[k] for k in before} == launched
