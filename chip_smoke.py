@@ -1712,7 +1712,10 @@ def k2_stage_edge_cases(dev, errs, routed):
     two 512-row sections) and random ones (not permutations), blocks never
     zeroed from a nonzero init over two passes, the scans truncated (lane
     and row steps), the compaction with random windows, u8 middles, and
-    four outputs."""
+    two and four outputs; for the 128-row kernel also pieces of several
+    steps, scans at (0, 0), (7, 0), (0, 7) and (1, 7), prefix sums, f32
+    loads with a pad side by round and trunc, a load in layout 1, the
+    transpose bodies, u8 sides only, and four sides live at once."""
     import torch
 
     from graph_tpu_torch.probes import k2_routes as kr
@@ -1769,18 +1772,45 @@ def k2_stage_edge_cases(dev, errs, routed):
     rand128 = [rand[0], rand[1].to(torch.uint8) & 127, rand[2], rand[3],
                rand[4].to(torch.uint8) & 127]
     quad = [steps(128, [i], 4, first=i) for i in range(4)]
-    for sides in (real128, rand128):
-        for stages, ls, rs in ((4, 7, 7), (1, 7, 7), (2, 7, 7), (3, 7, 7),
-                               (4, 5, 1), (4, 7, 3), (3, 7, 0)):
-            program = ks.sec128_program(stages, ls, rs)
-            for sl, init in (([steps(128, [0, 1, 1], 3)], 0),
-                             ([steps(128, [1, 1], 2, [False] * 2, 2)], -5),
-                             (quad, 1 << 30)):
-                outs = ks.sec128(vi, sides, program, ks.schedule(sl, dev),
-                                 init)
-                for got, want in zip(outs, ks.stage_plain(
-                        vi, sides, program, sl, None, init)):
-                    hold(errs, "probe_sec128", got, want)
+    # one to four outputs; pieces of one to four steps (a chain of six
+    # into one block: pieces of four and two, added), never-zeroed blocks
+    layouts128 = (([steps(128, [0, 1, 1], 3)], 0),
+                  ([steps(128, [1, 1], 2, [False] * 2, 2)], -5),
+                  ([steps(128, [0] * 6 + [1] * 2, 2)], 3),
+                  (quad[:2], -(1 << 31)), (quad, 1 << 30))
+    # the 128-row kernel's boundaries: scans at the ends of both depths,
+    # prefix sums, f32 loads with a pad side, a load in the Y layout, the
+    # transpose probe's bodies, gathers by shift and touches, and four
+    # sides live at once (at one block a section one has no slot and is
+    # read at each use)
+    programs = [ks.sec128_program(*d) for d in (
+        (4, 7, 7), (1, 7, 7), (2, 7, 7), (3, 7, 7), (4, 5, 1), (4, 7, 3),
+        (3, 7, 0), (4, 0, 0), (4, 7, 0), (4, 0, 7), (4, 1, 7))]
+    programs += [
+        (("load", "int"), ("psum",), ("add_full", 1)),
+        (("load", "int"), *ks.route128(1, 2), ("psum",), ("mask", 4)),
+        (("load", "int", 0, 1), ("ti",), ("gather", 2, 3), ("t",),
+         ("gather", 0, 13), ("ti",), ("add_touch", 5)),
+        ks.TRANSPOSE["t128x8"][1], ks.TRANSPOSE["taa128x4"][1],
+        (("load", "int"), ("add_full", 1), ("add_full", 2), ("add_full", 3),
+         ("add_full", 4), ("mask", 1), ("mask", 2), ("mask", 3),
+         ("mask", 4), ("add_const", -7))]
+    f32_programs = [
+        (("load", "round", 1), *ks.route128(2, 3), ("scan", 4, 7, 7)),
+        (("load", "trunc", 3), ("gather", 1, 7), ("mask", 3),
+         ("add_touch", 2))]
+    u8_all = [s.to(torch.uint8) for s in rand128]
+    for sides in (real128, rand128, u8_all):
+        for program in programs + f32_programs:
+            v = vi if program[0][1] == "int" else vf
+            for sl, init in layouts128:
+                sched = ks.schedule(sl, dev)
+                wants = ks.stage_plain(v, sides, program, sl, None, init)
+                # the default grid (two blocks a section), then one block
+                for blocks in (None, 1):
+                    outs = ks.sec128(v, sides, program, sched, init, blocks)
+                    for got, want in zip(outs, wants):
+                        hold(errs, "probe_sec128", got, want)
 
 
 #: Each stage-probe site's table row: (kernel, entry point, case label,
@@ -1800,6 +1830,12 @@ K2_STAGE_ROWS = (
      "scripts/perf_k2_sec128.py:218"),
     ("probe_sec_route", "transpose", "t512x2",
      "scripts/perf_transpose.py:33"))
+
+
+#: The source of each stage-probe kernel.
+K2_STAGE_SOURCES = {
+    "probe_sec_route": "graph_tpu_torch/csrc/k2_stage_probes.cu",
+    "probe_sec128": "graph_tpu_torch/csrc/k2_sec128.cu"}
 
 
 def k2_stages_graph_free(dev, sec128_inputs, stages_inputs):
@@ -1914,18 +1950,21 @@ def k2_stage_rows(errs, launches, cases, layout, stand_in, sec128_inputs,
     """The seven stage-probe sites' rows of the kernel table, each at its
     named case, held once more against its plain version there, with
     each row's launches by entry point and the card's own time a call.
-    The library yardstick: ``index_add_`` of the quanta into the
-    destinations for ``full``, ``k2_128`` and ``k2_quad`` (the same sums;
-    the quantization and routing are not in it), ``torch.gather`` by the
-    precomputed rows for the C stage alone, one ``transpose(1, 2)
-    .contiguous()`` for ``t512x2`` (half its work)."""
+    The library yardstick, a call and on the card: ``index_add_`` of the
+    quanta into the destinations for ``full``, ``k2_128`` and ``k2_quad``
+    (the same sums; the quantization and routing are not in it),
+    ``torch.gather`` by the precomputed rows for the C stage alone, one
+    ``transpose(1, 2).contiguous()`` for ``t512x2`` (half its work).  The
+    128-row rows also give the card's time at each grid a section may
+    take (``device_ms_by_blocks``), each grid held to the plain version."""
     import torch
 
+    from graph_tpu_torch.probes import k2_stage_kernels as ks
     from graph_tpu_torch.probes.timing import graph_ms
 
     rows = []
     for kernel, script, label, replaces in K2_STAGE_ROWS:
-        res, (_, v, sides, _) = cases[(script, label)]
+        res, (steps_list, v, sides, _) = cases[(script, label)]
         run, plain = res["run"], res["plain"]
         for got, want in zip(run(), plain()):
             hold(errs, kernel, got, want)
@@ -1934,12 +1973,14 @@ def k2_stage_rows(errs, launches, cases, layout, stand_in, sec128_inputs,
         bound, by = bound_of(res["bytes"], res["ops"])
         rows.append({
             "name": kernel, "path": "k2_stages", "route": "cuda",
-            "source": "graph_tpu_torch/csrc/k2_stage_probes.cu",
+            "source": K2_STAGE_SOURCES[kernel],
             "replaces": replaces, "launches": launches[kernel],
             "max_abs_err": errs[kernel], "ms": time_ms(run, 5),
             "plain_ms": time_ms(plain, 1), "bound_ms": bound,
             "bound_by": by,
             "library_ms": None if call is None else time_ms(call, 5),
+            "library_device_ms": (None if call is None
+                                  else graph_ms(call, v.device, 5)),
             "library": what, "bytes": res["bytes"], "ops": res["ops"],
             "shapes": f"slots={res['slots']}", "script": script,
             "label": label, "rows": res["rows"], "passes": res["passes"],
@@ -1947,6 +1988,20 @@ def k2_stage_rows(errs, launches, cases, layout, stand_in, sec128_inputs,
             "device_ms": graph_ms(run, v.device, 5),
             "launches_by_path": {f"k2_stages ({s})": c[kernel]
                                  for s, c in by_script.items() if c[kernel]}})
+        if kernel == "probe_sec128":
+            program = ks.sec128_program()  # both rows: k2_128 at (7, 7)
+            sched = ks.schedule(steps_list, v.device)
+            # each grid in turns (1, 2, 2, 1), 20 replays a turn
+            by_blocks = {str(b): [] for b in ks.SEC128_BLOCKS}
+            for blocks in (*ks.SEC128_BLOCKS, *ks.SEC128_BLOCKS[::-1]):
+                def call_at(b=blocks):
+                    return ks.sec128(v, sides, program, sched, blocks=b)
+                for got, want in zip(call_at(), plain()):
+                    hold(errs, kernel, got, want)
+                by_blocks[str(blocks)].append(graph_ms(call_at, v.device,
+                                                       20))
+            rows[-1]["device_ms_by_blocks"] = {
+                b: sum(t) / len(t) for b, t in by_blocks.items()}
         torch.cuda.empty_cache()
     return rows
 
@@ -2113,7 +2168,9 @@ def run(rmat):
     emit({"phase": "card", "nvidia_smi": card,
           "torch": torch.__version__, "cuda": torch.version.cuda,
           "kernels_built": built, "host_libraries": host_built,
-          "build_s": time.perf_counter() - t0})
+          "build_s": time.perf_counter() - t0,
+          "ptxas": {src: _build.ptxas_usage(log)
+                    for src, log in sorted(_build.LOGS.items())}})
 
     # 2. kernels against their plain versions at edge-case shapes, then
     # the algorithms on small graphs against the CPU path

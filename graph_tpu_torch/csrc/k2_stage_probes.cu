@@ -1,7 +1,7 @@
 // K2 stage probes: the TPU's K2 section program (route 1, segmented scan,
 // route 2) and its stage-by-stage variants, run on Hopper.  Counterparts
 // of the seven Pallas sites of the K2 stage-attribution and transpose
-// micro-benchmarks:
+// micro-benchmarks, in two sources:
 //
 //   probe_sec_route  sections of 512 rows x 128 lanes, a cluster of 4
 //                    blocks each; replaces scripts/perf_k2_stages.py:66
@@ -10,10 +10,10 @@
 //                    perf_k2_route_ops.py:113 (variant_kernel) and :167
 //                    (the inline C stage), and perf_transpose.py:33 (mk:
 //                    copy, t512x2, taa512)
-//   probe_sec128     sections of 128 rows, one block each; replaces
-//                    scripts/perf_k2_sec128.py:159 (k2_128) and :218
-//                    (k2_quad, four outputs), and perf_transpose.py:33's
-//                    t128x8 and taa128x4
+//   probe_sec128     sections of 128 rows (k2_sec128.cu, a design of its
+//                    own); replaces scripts/perf_k2_sec128.py:159 (k2_128)
+//                    and :218 (k2_quad, four outputs), and
+//                    perf_transpose.py:33's t128x8 and taa128x4
 //
 // The function.  A variant is a program of stages run on each section of
 // its steps, then the step's epilogue (below).  A section's state is an
@@ -62,8 +62,8 @@
 // route's row stages (A, B, D, E) and both transposes stay inside a block:
 // after T, block a holds the Y rows k*4 + a.  Only the C stage, the scans'
 // row carries and the compaction read another block's shared memory, through
-// the cluster (distributed shared memory), between cluster barriers.  A
-// 128-row section is one block.  Bound: bytes (every stream's rows read
+// the cluster (distributed shared memory), between cluster barriers.
+// Bound: bytes (every stream's rows read
 // once a step, each out block written once); the stages cost shared-memory
 // passes, two barriers each.
 
@@ -142,21 +142,13 @@ __device__ __forceinline__ uint32_t side_at(const Inputs& in, int s,
 
 template <int G>
 __device__ __forceinline__ void cluster_sync() {
-  if constexpr (G == 1) {
-    __syncthreads();
-  } else {
-    cg::this_cluster().sync();
-  }
+  cg::this_cluster().sync();
 }
 
 // Block `rank`'s copy of a shared-memory array of this block.
 template <int G>
 __device__ __forceinline__ const uint32_t* peer(uint32_t* p, int rank) {
-  if constexpr (G == 1) {
-    return p;
-  } else {
-    return cg::this_cluster().map_shared_rank(p, (unsigned)rank);
-  }
+  return cg::this_cluster().map_shared_rank(p, (unsigned)rank);
 }
 
 struct Smem {
@@ -349,7 +341,7 @@ __device__ int run_program(const Inputs& in, const Program& prog,
           s.rend[t] = s.x[t * kPitch + kLanes - 1];
           s.rsr[t] = 0u;
         }
-        row_scan<G>(s, G == 1 ? 7 : 9);
+        row_scan<G>(s, 9);
 #pragma unroll
         for (int e = 0; e < kPer; ++e) {
           const int r = row_of(e);
@@ -410,8 +402,7 @@ __global__ void __launch_bounds__(kThreads, 1)
   const Smem s{smem, smem + kRows * kPitch, smem + kRows * kPitch + kRows,
                smem + kRows * kPitch + 2 * kRows,
                smem + kRows * kPitch + 2 * kRows + kMaxRows};
-  int a = 0;
-  if constexpr (G > 1) a = (int)cg::this_cluster().block_rank();
+  const int a = (int)cg::this_cluster().block_rank();
   const Piece pc = piece_at(pieces, blockIdx.x / G);
   uint32_t start = 0;
   if (pc.kind == kStore) start = pc.zeroed ? 0u : init;
@@ -459,26 +450,21 @@ int launch(const Inputs& in, const Program& prog, const long long* pieces,
     if (e != cudaSuccess) return (int)e;
     attr_set = true;
   }
-  if constexpr (G == 1) {
-    kernel<<<(unsigned)grid, kThreads, smem, stream>>>(in, prog, pieces,
-                                                      chain, sink, init);
-  } else {
-    cudaLaunchConfig_t cfg = {};
-    cfg.gridDim = dim3((unsigned)grid);
-    cfg.blockDim = dim3(kThreads);
-    cfg.dynamicSmemBytes = smem;
-    cfg.stream = stream;
-    cudaLaunchAttribute attr[1];
-    attr[0].id = cudaLaunchAttributeClusterDimension;
-    attr[0].val.clusterDim.x = G;
-    attr[0].val.clusterDim.y = 1;
-    attr[0].val.clusterDim.z = 1;
-    cfg.attrs = attr;
-    cfg.numAttrs = 1;
-    const cudaError_t e =
-        cudaLaunchKernelEx(&cfg, kernel, in, prog, pieces, chain, sink, init);
-    if (e != cudaSuccess) return (int)e;
-  }
+  cudaLaunchConfig_t cfg = {};
+  cfg.gridDim = dim3((unsigned)grid);
+  cfg.blockDim = dim3(kThreads);
+  cfg.dynamicSmemBytes = smem;
+  cfg.stream = stream;
+  cudaLaunchAttribute attr[1];
+  attr[0].id = cudaLaunchAttributeClusterDimension;
+  attr[0].val.clusterDim.x = G;
+  attr[0].val.clusterDim.y = 1;
+  attr[0].val.clusterDim.z = 1;
+  cfg.attrs = attr;
+  cfg.numAttrs = 1;
+  const cudaError_t e =
+      cudaLaunchKernelEx(&cfg, kernel, in, prog, pieces, chain, sink, init);
+  if (e != cudaSuccess) return (int)e;
   return (int)cudaGetLastError();
 }
 
@@ -509,7 +495,7 @@ int entry(const void* v, const void* s1, const void* s2, const void* s3,
 
 }  // namespace
 
-// Each entry point launches on `stream` and returns the CUDA error (0 on
+// The entry point launches on `stream` and returns the CUDA error (0 on
 // success; nothing is launched for npieces == 0).  Device pointers: v
 // (rows, 128) f32 (v_f32 != 0) or int32; s1..s5 (rows, 128) u16, or u8
 // where bit s-1 of u8mask is set (null where the program names none);
@@ -528,18 +514,6 @@ extern "C" int probe_sec_route(const void* v, const void* s1, const void* s2,
                                int nops, int v_f32, int u8mask, int init,
                                void* stream) {
   return entry<4>(v, s1, s2, s3, s4, s5, meta, out0, out1, out2, out3, pieces,
-                  chain, sink, program, npieces, nops, v_f32, u8mask, init,
-                  stream);
-}
-
-extern "C" int probe_sec128(const void* v, const void* s1, const void* s2,
-                            const void* s3, const void* s4, const void* s5,
-                            const void* meta, void* out0, void* out1,
-                            void* out2, void* out3, const void* pieces,
-                            const void* chain, void* sink, const int* program,
-                            long long npieces, int nops, int v_f32,
-                            int u8mask, int init, void* stream) {
-  return entry<1>(v, s1, s2, s3, s4, s5, meta, out0, out1, out2, out3, pieces,
                   chain, sink, program, npieces, nops, v_f32, u8mask, init,
                   stream);
 }

@@ -16,6 +16,7 @@ from __future__ import annotations
 import ctypes
 import hashlib
 import os
+import re
 import shutil
 import subprocess
 from pathlib import Path
@@ -24,7 +25,7 @@ PKG = Path(__file__).resolve().parents[1]
 CSRC = PKG / "csrc"
 BUILD_DIR = PKG / "build"
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
-              "-O3", "-shared", "-Xcompiler", "-fPIC")
+              "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 
 _P = ctypes.c_void_p
 _I64 = ctypes.c_longlong
@@ -44,6 +45,7 @@ SIGNATURES = {
     "probe_sec_stream_f32": (_P,) * 10 + (_I64,) + (_I32,) * 5 + (_P,),
     "probe_sec_route": (_P,) * 15 + (_I64,) + (_I32,) * 4 + (_P,),
     "probe_sec128": (_P,) * 15 + (_I64,) + (_I32,) * 4 + (_P,),
+    "probe_sec128_blocks": (_P,) * 15 + (_I64,) + (_I32,) * 5 + (_P,),
 }
 #: The source (``csrc/<source>.cu``) that defines each entry point.
 SOURCES = {
@@ -58,11 +60,14 @@ SOURCES = {
     "probe_sec_stream": "k2_probes",
     "probe_sec_stream_f32": "k2_probes",
     "probe_sec_route": "k2_stage_probes",
-    "probe_sec128": "k2_stage_probes",
+    "probe_sec128": "k2_sec128",
+    "probe_sec128_blocks": "k2_sec128",
 }
 
 _libs: dict = {}
 _fns: dict = {}
+#: nvcc's output for each source compiled by this process.
+LOGS: dict = {}
 
 
 def _nvcc() -> str:
@@ -104,6 +109,7 @@ def build(names=tuple(SIGNATURES)) -> list:
     failed = []
     for source, out, tmp, proc in procs:
         log, _ = proc.communicate()
+        LOGS[source] = log
         if proc.returncode == 0:
             os.replace(tmp, out)
         else:
@@ -111,6 +117,30 @@ def build(names=tuple(SIGNATURES)) -> list:
     if failed:
         raise RuntimeError("kernel build failed:\n" + "\n".join(failed))
     return todo
+
+
+def ptxas_usage(log: str) -> list:
+    """Each kernel's registers, stack frame and spills, as ``-Xptxas -v``
+    reported them in a build's ``log``: a list of dicts (``function``,
+    ``registers``, ``stack``, ``spill_stores``, ``spill_loads``)."""
+    out, cur = [], None
+    for line in log.splitlines():
+        m = re.search(r"Function properties for (\S+)", line)
+        if m:
+            cur = {"function": m.group(1)}
+            out.append(cur)
+            continue
+        m = re.search(r"(\d+) bytes stack frame, (\d+) bytes spill stores, "
+                      r"(\d+) bytes spill loads", line)
+        if m and cur is not None:
+            cur.update(stack=int(m.group(1)), spill_stores=int(m.group(2)),
+                       spill_loads=int(m.group(3)))
+            continue
+        m = re.search(r"Used (\d+) registers", line)
+        if m and cur is not None:
+            cur["registers"] = int(m.group(1))
+            cur = None
+    return out
 
 
 def load(name: str):

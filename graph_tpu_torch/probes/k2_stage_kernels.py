@@ -5,8 +5,10 @@ Counterparts of the seven Pallas sites of ``scripts/perf_k2_stages.py``,
 and ``perf_transpose.py``, written by hand in CUDA C++ for Hopper
 (``graph_tpu_torch/csrc/k2_stage_probes.cu``): :func:`sec_route` runs
 sections of 512 rows x 128 lanes (``probe_sec_route``, a cluster of four
-blocks a section), :func:`sec128` sections of 128 rows
-(``probe_sec128``).
+blocks a section), :func:`sec128` sections of 128 rows (``probe_sec128``,
+``csrc/k2_sec128.cu``: a section over a cluster of two blocks, or one on
+request, the state in registers, one barrier a stage that crosses rows,
+each side fetched once a section).
 
 A variant is a **program**: a tuple of stages ``(op, a1, a2, a3)`` run on
 each section a step reads, from ``v`` (rows, 128) f32 or int32 and up to
@@ -46,7 +48,8 @@ pieces, atomic adds for split chains, dead pieces computed and their
 value dropped).  Blocks never zeroed or never touched start from ``init``.
 
 Each wrapper runs its plain version for tensors on the CPU.  For CUDA
-tensors it checks device, dtype, shape and contiguity, launches its kernel
+tensors it checks device, dtype, shape, contiguity and alignment (the
+program's check and its words are cached), launches its kernel
 on the current stream (building it at first use) and raises if the launch
 reports an error; it never falls back to the plain version on the card.
 ``LAUNCHES`` counts the kernel launches.
@@ -236,6 +239,25 @@ def validate(program: Sequence[tuple], rows: int, nsides: int,
                 raise ValueError(f"constant of {op!r} does not fit int32")
 
 
+#: The words of each program checked so far, by (program, rows, sides,
+#: meta, dtype of v).
+_WORDS: dict = {}
+
+
+def checked_words(program: Sequence[tuple], rows: int, nsides: int,
+                  has_meta: bool, v_dtype: torch.dtype) -> np.ndarray:
+    """:func:`validate`, then :func:`encode`; the words are kept for the
+    next call with the same arguments, and a program that fails is checked
+    (and refused) again at every call."""
+    key = (tuple(tuple(op) for op in program), rows, nsides, has_meta,
+           v_dtype)
+    words = _WORDS.get(key)
+    if words is None:
+        validate(program, rows, nsides, has_meta, v_dtype)
+        words = _WORDS[key] = np.ascontiguousarray(encode(program))
+    return words
+
+
 def encode(program: Sequence[tuple]) -> np.ndarray:
     """The kernel's (nops, 4) int32 words: op, then its arguments."""
     words = np.zeros((len(program), 4), np.int32)
@@ -386,13 +408,16 @@ class StageSchedule:
     """The pieces of up to four outputs' steps in one table: each
     output's :func:`~graph_tpu_torch.probes.k2_kernels.schedule`, its
     chain offsets shifted and its index in bits 8-9 of the piece word;
-    ``meta`` the compaction windows, checked, or None."""
+    ``meta`` the compaction windows, checked, or None; ``stored`` whether
+    each output's every block is written whole by a piece that stores it
+    (the wrapper then need not fill that output with ``init``)."""
 
     steps: tuple
     pieces: torch.Tensor
     chain: torch.Tensor
     sink: torch.Tensor
     meta: Optional[torch.Tensor]
+    stored: tuple
 
     @property
     def device(self) -> torch.device:
@@ -420,10 +445,13 @@ def schedule(steps_list: Sequence[Steps], device,
     for every section the steps read) for ``compact``."""
     if not 1 <= len(steps_list) <= MAX_OUTS:
         raise ValueError(f"1 to {MAX_OUTS} outputs, got {len(steps_list)}")
-    pieces, chains, off = [], [], 0
+    pieces, chains, stored, off = [], [], [], 0
     for i, steps in enumerate(steps_list):
         s = kk.schedule(steps, "cpu", piece_steps=PIECE_STEPS)
         p = s.pieces.clone()
+        blocks = p[(p[:, 3] & 15) == kk.STORE, 0]
+        stored.append(bool(torch.equal(torch.unique(blocks),
+                                       torch.arange(steps.nout))))
         p[:, 1] += off
         p[:, 3] |= i << 8
         pieces.append(p)
@@ -437,7 +465,8 @@ def schedule(steps_list: Sequence[Steps], device,
         mt = torch.from_numpy(np.ascontiguousarray(meta)).to(dev)
     return StageSchedule(tuple(steps_list), torch.cat(pieces).to(dev),
                          torch.cat(chains).to(dev),
-                         torch.zeros(1, dtype=torch.int32, device=dev), mt)
+                         torch.zeros(1, dtype=torch.int32, device=dev), mt,
+                         tuple(stored))
 
 
 # ---- bytes and operations --------------------------------------------------
@@ -498,9 +527,16 @@ def operations(program, steps_list: Sequence[Steps]) -> int:
 
 # ---- wrappers --------------------------------------------------------------
 
+#: Blocks a 128-row section may be split over (a cluster of blocks).
+SEC128_BLOCKS = (1, 2)
+
+
 def _run(name: str, rows: int, v, sides, program, sched: StageSchedule,
-         init: int) -> list:
+         init: int, blocks: Optional[int] = None) -> list:
     steps_list, meta = sched.steps, sched.meta
+    if blocks is not None and blocks not in SEC128_BLOCKS:
+        raise ValueError(f"blocks must be one of {SEC128_BLOCKS}, got "
+                         f"{blocks}")
     if rows == 512 and len(steps_list) != 1:
         raise ValueError("probe_sec_route writes one output")
     for steps in steps_list:
@@ -510,29 +546,37 @@ def _run(name: str, rows: int, v, sides, program, sched: StageSchedule,
         raise ValueError(f"at most {MAX_SIDES} sides, got {len(sides)}")
     if not -(1 << 31) <= int(init) < 1 << 31:
         raise ValueError(f"init {init} does not fit int32")
-    validate(program, rows, len(sides), meta is not None, v.dtype)
+    words = checked_words(program, rows, len(sides), meta is not None,
+                          v.dtype)
     if _on_cpu(v, *sides):
         return stage_plain(v, sides, program, steps_list, meta, init)
     dev = v.device
     if sched.device != dev:
         raise ValueError(f"schedule is on {sched.device}, v on {dev}")
     need = max(s.rows_needed for s in steps_list)
+    # probe_sec128 reads 4 elements of a row at once
+    group = 4 if rows == 128 else 1
     _check("v", v, (torch.float32, torch.int32), dev,
            v.dim() == 2 and v.shape[1] == LANES and v.shape[0] >= need,
-           f"(>= {need}, 128)", 4)
+           f"(>= {need}, 128)", 4 * group)
     u8mask = 0
     for i, s in enumerate(sides):
         _check(f"side {i + 1}", s, (torch.uint16, torch.uint8), dev,
                s.dim() == 2 and s.shape[1] == LANES and s.shape[0] >= need,
-               f"(>= {need}, 128)", s.element_size())
+               f"(>= {need}, 128)", s.element_size() * group)
         u8mask |= (s.dtype == torch.uint8) << i
-    outs = [torch.full((s.nout * rows, LANES), int(init), dtype=torch.int32,
-                       device=dev) for s in steps_list]
+    # probe_sec128's outputs whose every block a piece stores whole are
+    # left unfilled
+    outs = [torch.empty((s.nout * rows, LANES), dtype=torch.int32,
+                        device=dev) if rows == 128 and whole else
+            torch.full((s.nout * rows, LANES), int(init), dtype=torch.int32,
+                       device=dev)
+            for s, whole in zip(steps_list, sched.stored)]
     if sched.pieces.shape[0]:
-        words = np.ascontiguousarray(encode(program))
         ptrs = [s.data_ptr() for s in sides] + [None] * (MAX_SIDES - len(sides))
         optrs = [o.data_ptr() for o in outs] + [None] * (MAX_OUTS - len(outs))
-        fn = _build.load(name)
+        fn = _build.load(name if blocks is None else f"{name}_blocks")
+        grid = () if blocks is None else (blocks,)
         with torch.cuda.device(dev):
             err = fn(v.data_ptr(), *ptrs,
                      None if meta is None else meta.data_ptr(), *optrs,
@@ -540,7 +584,7 @@ def _run(name: str, rows: int, v, sides, program, sched: StageSchedule,
                      sched.sink.data_ptr(), words.ctypes.data,
                      sched.pieces.shape[0], len(words),
                      int(v.dtype == torch.float32), u8mask, int(init),
-                     torch.cuda.current_stream(dev).cuda_stream)
+                     *grid, torch.cuda.current_stream(dev).cuda_stream)
         LAUNCHES[name] += 1
         if err != 0:
             raise RuntimeError(f"{name}: kernel launch failed with CUDA "
@@ -560,8 +604,10 @@ def sec_route(v: torch.Tensor, sides: Sequence[torch.Tensor],
 
 def sec128(v: torch.Tensor, sides: Sequence[torch.Tensor],
            program: Sequence[tuple], sched: StageSchedule,
-           init: int = 0) -> list:
+           init: int = 0, blocks: Optional[int] = None) -> list:
     """A program on 128-row sections into one to four outputs (``k2_quad``
     writes four): a list of (nout * 128, 128) int32, one a :class:`Steps`
-    of ``sched``."""
-    return _run("probe_sec128", 128, v, sides, program, sched, init)
+    of ``sched``.  ``blocks`` (one of :data:`SEC128_BLOCKS`) splits each
+    section over that many blocks of a cluster; None takes the kernel's
+    default.  The result does not depend on it."""
+    return _run("probe_sec128", 128, v, sides, program, sched, init, blocks)
