@@ -1781,8 +1781,7 @@ def k2_stage_edge_cases(dev, errs, routed):
     # the 128-row kernel's boundaries: scans at the ends of both depths,
     # prefix sums, f32 loads with a pad side, a load in the Y layout, the
     # transpose probe's bodies, gathers by shift and touches, and four
-    # sides live at once (at one block a section one has no slot and is
-    # read at each use)
+    # sides live at once
     programs = [ks.sec128_program(*d) for d in (
         (4, 7, 7), (1, 7, 7), (2, 7, 7), (3, 7, 7), (4, 5, 1), (4, 7, 3),
         (3, 7, 0), (4, 0, 0), (4, 7, 0), (4, 0, 7), (4, 1, 7))]
@@ -1804,13 +1803,11 @@ def k2_stage_edge_cases(dev, errs, routed):
         for program in programs + f32_programs:
             v = vi if program[0][1] == "int" else vf
             for sl, init in layouts128:
-                sched = ks.schedule(sl, dev)
-                wants = ks.stage_plain(v, sides, program, sl, None, init)
-                # the default grid (two blocks a section), then one block
-                for blocks in (None, 1):
-                    outs = ks.sec128(v, sides, program, sched, init, blocks)
-                    for got, want in zip(outs, wants):
-                        hold(errs, "probe_sec128", got, want)
+                outs = ks.sec128(v, sides, program, ks.schedule(sl, dev),
+                                 init)
+                for got, want in zip(outs, ks.stage_plain(
+                        v, sides, program, sl, None, init)):
+                    hold(errs, "probe_sec128", got, want)
 
 
 #: Each stage-probe site's table row: (kernel, entry point, case label,
@@ -1954,17 +1951,14 @@ def k2_stage_rows(errs, launches, cases, layout, stand_in, sec128_inputs,
     quanta into the destinations for ``full``, ``k2_128`` and ``k2_quad``
     (the same sums; the quantization and routing are not in it),
     ``torch.gather`` by the precomputed rows for the C stage alone, one
-    ``transpose(1, 2).contiguous()`` for ``t512x2`` (half its work).  The
-    128-row rows also give the card's time at each grid a section may
-    take (``device_ms_by_blocks``), each grid held to the plain version."""
+    ``transpose(1, 2).contiguous()`` for ``t512x2`` (half its work)."""
     import torch
 
-    from graph_tpu_torch.probes import k2_stage_kernels as ks
     from graph_tpu_torch.probes.timing import graph_ms
 
     rows = []
     for kernel, script, label, replaces in K2_STAGE_ROWS:
-        res, (steps_list, v, sides, _) = cases[(script, label)]
+        res, (_, v, sides, _) = cases[(script, label)]
         run, plain = res["run"], res["plain"]
         for got, want in zip(run(), plain()):
             hold(errs, kernel, got, want)
@@ -1988,20 +1982,6 @@ def k2_stage_rows(errs, launches, cases, layout, stand_in, sec128_inputs,
             "device_ms": graph_ms(run, v.device, 5),
             "launches_by_path": {f"k2_stages ({s})": c[kernel]
                                  for s, c in by_script.items() if c[kernel]}})
-        if kernel == "probe_sec128":
-            program = ks.sec128_program()  # both rows: k2_128 at (7, 7)
-            sched = ks.schedule(steps_list, v.device)
-            # each grid in turns (1, 2, 2, 1), 20 replays a turn
-            by_blocks = {str(b): [] for b in ks.SEC128_BLOCKS}
-            for blocks in (*ks.SEC128_BLOCKS, *ks.SEC128_BLOCKS[::-1]):
-                def call_at(b=blocks):
-                    return ks.sec128(v, sides, program, sched, blocks=b)
-                for got, want in zip(call_at(), plain()):
-                    hold(errs, kernel, got, want)
-                by_blocks[str(blocks)].append(graph_ms(call_at, v.device,
-                                                       20))
-            rows[-1]["device_ms_by_blocks"] = {
-                b: sum(t) / len(t) for b, t in by_blocks.items()}
         torch.cuda.empty_cache()
     return rows
 

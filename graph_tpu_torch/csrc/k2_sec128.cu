@@ -10,8 +10,8 @@
 // 3.35 TB/s: less than a launch costs, so such a call is held back by the
 // launch and by each section's chain of dependent stages, not by bytes.
 //
-// The design.  A section is split over G blocks of a cluster (G = 2 by
-// default, 1 on request), 64 rows a block, 512 threads a block:
+// The design.  A section is split over the two blocks of a cluster, 64 rows
+// a block, 512 threads a block:
 // - Warp w owns kRW rows, lane t of it lanes 4t .. 4t+3 of each: the state
 //   and its running sums are registers.  In a 128-row section every side
 //   word a thread reads lies at one of its own elements, in both layouts
@@ -30,17 +30,22 @@
 //   flips.  With two buffers that is safe: a crossing stores into the
 //   buffer last stored two crossings back, whose readers all passed the
 //   barrier between; the gathers use the last crossing's buffer, into which
-//   nothing is stored until the crossing after next.
-// - Each side is fetched once a section, by cp.async into a slot of shared
-//   memory, each thread its own words, and waited for (wait_group, no
-//   barrier) before its first use.  A longer piece fetches the next
-//   section's sides during this one, each right after its last use here,
-//   behind a block barrier.  With G = 1 there is room for three slots; the
-//   sides past them are read from device memory at each use.  A slot is
-//   never refilled within a section (PERF.md).
-// - 512 threads leave 128 registers a thread: no spills at G = 2.  Shared
-//   memory a block: two state buffers, the row ends, five 16 KB slots
-//   (G = 2); 226 KB with three 32 KB slots at G = 1.
+//   nothing is stored until the crossing after next.  The cluster also
+//   syncs once at the start, so that no block stores into a peer that has
+//   not begun, and once at the end, so that none leaves while its peer may
+//   still read it.
+// - Each side has a slot of shared memory, filled by cp.async once a
+//   section and waited for (wait_group, no barrier) before its first use.
+//   A longer piece fetches the next section's sides during this one, each
+//   right after its last use here.  A thread's words of a slot are its
+//   own: it alone fetches them and reads them, and no peer touches the
+//   slots.  So a refill takes no barrier: it follows the thread's own last
+//   read of the slot in program order (the asm's memory clobber keeps the
+//   compiler from moving the read past it), and the slot's fetch for this
+//   section was waited for before that read, so no two copies into one
+//   word are ever in flight (cp.async orders none between them).
+// - 512 threads leave 128 registers a thread: no spills.  Shared memory a
+//   block: two state buffers, the row ends, five 16 KB slots (149.5 KB).
 
 #include <cooperative_groups.h>
 #include <cuda_runtime.h>
@@ -55,27 +60,19 @@ constexpr int kLanes = 128;
 constexpr int kRows = 128;
 constexpr int kThreads = 512;
 constexpr int kWarps = kThreads / 32;
-constexpr int kMaxSlots = 5;
 constexpr int kMaxOps = 24;
 constexpr int kSides = 5;
 constexpr int kOuts = 4;
-constexpr int kMaxEvents = kMaxSlots;
 constexpr uint32_t kSinkKey = 0x9e3779b9u;
-// Blocks a section when the caller does not say (see the header).
-constexpr int kDefaultBlocks = 2;
-
-// A section split over G blocks of a cluster, kRB rows each, kRW rows a
+// A section over a cluster of kBlocks blocks, kRB rows each, kRW rows a
 // warp; two state buffers, the row ends and their segment-start rows
-// (double too), and the side slots (4 u16 a row a thread).
-template <int G>
-struct Shape {
-  static constexpr int kRB = kRows / G;
-  static constexpr int kRW = kRB / kWarps;
-  static constexpr int kBuf = kRB * kLanes;
-  static constexpr int kSlots = G == 1 ? 3 : kMaxSlots;
-  static constexpr int kSlotWords = kThreads * kRW * 2;
-  static constexpr int kSmemWords = 2 * kBuf + 4 * kRows + kSlots * kSlotWords;
-};
+// (double too), and a slot a side (4 u16 a row a thread).
+constexpr int kBlocks = 2;
+constexpr int kRB = kRows / kBlocks;
+constexpr int kRW = kRB / kWarps;
+constexpr int kBuf = kRB * kLanes;
+constexpr int kSlotWords = kThreads * kRW * 2;
+constexpr int kSmemWords = 2 * kBuf + 4 * kRows + kSides * kSlotWords;
 
 enum Op {
   kLoad = 0, kGather = 1, kT = 2, kTI = 3, kC = 4, kMask = 5, kScan = 6,
@@ -84,17 +81,17 @@ enum Op {
 enum Quant { kTrunc = 0, kRound = 1, kInt = 2 };
 enum Kind { kDead = 0, kStore = 1, kAdd = 2 };
 
-// The program's words, the slot each stage's side lies in (-1: none, or
-// read from device memory), and the fetches of the next section's sides:
-// after stage ev_after, side ev_side into slot ev_slot.
+// The program's words, the slot each stage's side lies in (-1: none), and
+// the fetches of the next section's sides: after stage ev_after, side
+// ev_side into slot ev_slot.
 struct Program {
   int nops;
   int w[kMaxOps][4];
   int slot[kMaxOps];
   int nev;
-  int ev_after[kMaxEvents];
-  int ev_side[kMaxEvents];
-  int ev_slot[kMaxEvents];
+  int ev_after[kSides];
+  int ev_side[kSides];
+  int ev_slot[kSides];
 };
 
 struct Inputs {
@@ -149,16 +146,15 @@ __device__ __forceinline__ void wait_group() {
 }
 
 // Wait until at most n of this thread's cp.async groups are in flight.
+// At a side's first use in a section at most the other four sides' fetches
+// were committed after its own (plan_slots orders them), so n <= 4.
 __device__ __forceinline__ void wait_pending(int n) {
   switch (n) {
-    case 0: wait_group<0>(); break;
     case 1: wait_group<1>(); break;
     case 2: wait_group<2>(); break;
     case 3: wait_group<3>(); break;
     case 4: wait_group<4>(); break;
-    case 5: wait_group<5>(); break;
-    case 6: wait_group<6>(); break;
-    default: wait_group<7>(); break;
+    default: wait_group<0>(); break;
   }
 }
 
@@ -179,28 +175,13 @@ __device__ __forceinline__ uint32_t pick(const uint32_t q[4], int e) {
 __device__ __forceinline__ int warp_id() { return (int)(threadIdx.x >> 5); }
 __device__ __forceinline__ int lane_id() { return (int)(threadIdx.x & 31); }
 
-template <int G>
-__device__ __forceinline__ void crossing_sync() {
-  if constexpr (G == 1) {
-    __syncthreads();
-  } else {
-    cg::this_cluster().sync();
-  }
-}
-
 // Block `rank`'s copy of a shared-memory array of this block.
-template <int G>
 __device__ __forceinline__ uint32_t* peer(uint32_t* p, int rank) {
-  if constexpr (G == 1) {
-    return p;
-  } else {
-    return cg::this_cluster().map_shared_rank(p, (unsigned)rank);
-  }
+  return cg::this_cluster().map_shared_rank(p, (unsigned)rank);
 }
 
 // Fetch this thread's words of side s (its kRW rows from section row r0)
 // into a slot and commit them as one cp.async group.
-template <int RW>
 __device__ __forceinline__ void fetch(const Inputs& in, uint32_t* slot,
                                       int s, long long r0) {
   const int tid = (int)threadIdx.x;
@@ -208,36 +189,28 @@ __device__ __forceinline__ void fetch(const Inputs& in, uint32_t* slot,
   if ((in.u8mask >> (s - 1)) & 1) {
     const uint8_t* p = static_cast<const uint8_t*>(side_ptr(in, s)) + e0;
 #pragma unroll
-    for (int k = 0; k < RW; ++k)
+    for (int k = 0; k < kRW; ++k)
       cp_async<4>(smem_addr(slot + k * kThreads + tid), p + k * kLanes);
   } else {
     const uint16_t* p = static_cast<const uint16_t*>(side_ptr(in, s)) + e0;
 #pragma unroll
-    for (int k = 0; k < RW; ++k)
+    for (int k = 0; k < kRW; ++k)
       cp_async<8>(smem_addr(slot + 2 * (k * kThreads + tid)), p + k * kLanes);
   }
   asm volatile("cp.async.commit_group;\n" ::: "memory");
 }
 
-// Side s at this thread's four elements of its row k (section row r0 + k),
-// widened: from its slot, or (slot null) from device memory.
+// Side s at this thread's four elements of its row k, widened, from the
+// slot `fetch` filled.
 __device__ __forceinline__ void side4(const Inputs& in, const uint32_t* slot,
-                                      int s, long long r0, int k,
-                                      uint32_t out[4]) {
-  const int tid = (int)threadIdx.x;
-  const long long e = (r0 + k) * kLanes + 4 * lane_id();
+                                      int s, int k, uint32_t out[4]) {
+  const int i = k * kThreads + (int)threadIdx.x;
   if ((in.u8mask >> (s - 1)) & 1) {
-    const uint32_t b =
-        slot ? slot[k * kThreads + tid]
-             : __ldg(reinterpret_cast<const uint32_t*>(
-                   static_cast<const uint8_t*>(side_ptr(in, s)) + e));
+    const uint32_t b = slot[i];
 #pragma unroll
     for (int j = 0; j < 4; ++j) out[j] = (b >> (8 * j)) & 255u;
   } else {
-    const uint2 h =
-        slot ? reinterpret_cast<const uint2*>(slot)[k * kThreads + tid]
-             : __ldg(reinterpret_cast<const uint2*>(
-                   static_cast<const uint16_t*>(side_ptr(in, s)) + e));
+    const uint2 h = reinterpret_cast<const uint2*>(slot)[i];
     out[0] = h.x & 0xffffu;
     out[1] = h.x >> 16;
     out[2] = h.y & 0xffffu;
@@ -302,44 +275,39 @@ __device__ __forceinline__ void warp_prefix(uint32_t q[4], uint32_t ex[4]) {
 
 // The group number of a slot's latest fetch (selects, so that tk stays in
 // registers).
-__device__ __forceinline__ int ticket(int slot, const int tk[kMaxSlots]) {
+__device__ __forceinline__ int ticket(int slot, const int tk[kSides]) {
   return slot == 0 ? tk[0] : slot == 1 ? tk[1] : slot == 2 ? tk[2]
        : slot == 3 ? tk[3] : tk[4];
 }
 
 // Fetch side s into a slot as the next group, and note its number.
-template <int G>
 __device__ __forceinline__ void start_fetch(const Inputs& in,
                                             uint32_t* slots, int s, int slot,
                                             long long r0, int& committed,
-                                            int tk[kMaxSlots]) {
-  using S = Shape<G>;
-  fetch<S::kRW>(in, slots + slot * S::kSlotWords, s, r0);
+                                            int tk[kSides]) {
+  fetch(in, slots + slot * kSlotWords, s, r0);
 #pragma unroll
-  for (int c = 0; c < kMaxSlots; ++c)
+  for (int c = 0; c < kSides; ++c)
     if (c == slot) tk[c] = committed;
   ++committed;
 }
 
-template <int G>
 __global__ void __launch_bounds__(kThreads, 1)
     sec128_kernel(Inputs in, Program prog,
                   const long long* __restrict__ pieces,
                   const long long* __restrict__ chain,
                   uint32_t* __restrict__ sink, uint32_t init) {
-  using S = Shape<G>;
-  constexpr int RB = S::kRB, RW = S::kRW;
+  constexpr int RB = kRB, RW = kRW;
   extern __shared__ __align__(16) uint32_t smem[];
   uint32_t* const bufs = smem;                    // 2 x kBuf
-  uint32_t* const rend = smem + 2 * S::kBuf;      // 2 x kRows: row ends
+  uint32_t* const rend = smem + 2 * kBuf;         // 2 x kRows: row ends
   uint32_t* const rsr = rend + 2 * kRows;         // 2 x kRows: their starts
-  uint32_t* const slots = rsr + 2 * kRows;        // kSlots x kSlotWords
+  uint32_t* const slots = rsr + 2 * kRows;        // kSides x kSlotWords
   const int w = warp_id(), t = lane_id();
-  int a = 0;
-  if constexpr (G > 1) a = (int)cg::this_cluster().block_rank();
+  const int a = (int)cg::this_cluster().block_rank();
   const int row_base = RW * w;        // this warp's first local row
   const int srow_base = a * RB + row_base;  // .. as a row of the section
-  const Piece pc = piece_at(pieces, blockIdx.x / G);
+  const Piece pc = piece_at(pieces, blockIdx.x / kBlocks);
   uint32_t start = 0;
   if (pc.kind == kStore) start = pc.zeroed ? 0u : init;
   if (pc.kind == kAdd && pc.first && pc.zeroed) start = 0u - init;
@@ -351,15 +319,16 @@ __global__ void __launch_bounds__(kThreads, 1)
 
   int b = 0;       // the buffer of the next crossing stage
   int committed = 0;  // cp.async groups committed; ticket: a slot's latest
-  int tk[kMaxSlots] = {0, 0, 0, 0, 0};
+  int tk[kSides] = {0, 0, 0, 0, 0};
   // the first section's sides (a longer piece fetches the next section's
   // during this one)
   if (pc.count > 0) {
     const long long row0 = __ldg(chain + pc.off);
     for (int e = 0; e < prog.nev; ++e)
-      start_fetch<G>(in, slots, prog.ev_side[e], prog.ev_slot[e],
-                     row0 + srow_base, committed, tk);
+      start_fetch(in, slots, prog.ev_side[e], prog.ev_slot[e],
+                  row0 + srow_base, committed, tk);
   }
+  cg::this_cluster().sync();  // the peer has begun: it may be stored into
 
   for (int sec = 0; sec < pc.count; ++sec) {
     const long long row0 = __ldg(chain + pc.off + sec);
@@ -374,11 +343,11 @@ __global__ void __launch_bounds__(kThreads, 1)
       const uint32_t* slot = nullptr;
       if (sl >= 0) {
         wait_pending(committed - 1 - ticket(sl, tk));
-        slot = slots + sl * S::kSlotWords;
+        slot = slots + sl * kSlotWords;
       }
       // the next crossing's buffer, and the last one's
-      uint32_t* const buf = bufs + b * S::kBuf;
-      uint32_t* const last = bufs + (b ^ 1) * S::kBuf;
+      uint32_t* const buf = bufs + b * kBuf;
+      uint32_t* const last = bufs + (b ^ 1) * kBuf;
       switch (op) {
         case kLoad: {
 #pragma unroll
@@ -398,7 +367,7 @@ __global__ void __launch_bounds__(kThreads, 1)
             float f[4] = {f4.x, f4.y, f4.z, f4.w};
             if (a2) {
               uint32_t pad[4];
-              side4(in, slot, a2, r0, k, pad);
+              side4(in, slot, a2, k, pad);
 #pragma unroll
               for (int j = 0; j < 4; ++j)
                 if ((pad[j] >> 15) & 1) f[j] = 0.0f;
@@ -422,7 +391,7 @@ __global__ void __launch_bounds__(kThreads, 1)
           for (int k = 0; k < RW; ++k) {
             uint32_t idx[4];
             if (a1) {
-              side4(in, slot, a1, r0, k, idx);
+              side4(in, slot, a1, k, idx);
 #pragma unroll
               for (int j = 0; j < 4; ++j) idx[j] = (idx[j] >> a2) & 127u;
             } else {
@@ -447,7 +416,7 @@ __global__ void __launch_bounds__(kThreads, 1)
 #pragma unroll
           for (int j = 0; j < 4; ++j) {
             const int r = 4 * t + j;
-            uint32_t* dst = peer<G>(buf, r / RB);
+            uint32_t* dst = peer(buf, r / RB);
 #pragma unroll
             for (int m = 0; m < RW / 4; ++m)
               *reinterpret_cast<uint4*>(dst +
@@ -455,7 +424,7 @@ __global__ void __launch_bounds__(kThreads, 1)
                   make_uint4(x[4 * m][j], x[4 * m + 1][j], x[4 * m + 2][j],
                              x[4 * m + 3][j]);
           }
-          crossing_sync<G>();
+          cg::this_cluster().sync();
 #pragma unroll
           for (int k = 0; k < RW; ++k) {
             const uint4 c = *reinterpret_cast<const uint4*>(
@@ -473,7 +442,7 @@ __global__ void __launch_bounds__(kThreads, 1)
 #pragma unroll
           for (int k = 0; k < RW; ++k) {
             uint32_t sv[4];
-            side4(in, slot, a1, r0, k, sv);
+            side4(in, slot, a1, k, sv);
 #pragma unroll
             for (int j = 0; j < 4; ++j) {
               if (op == kAddFull) {
@@ -491,7 +460,7 @@ __global__ void __launch_bounds__(kThreads, 1)
           for (int k = 0; k < RW; ++k) {
             const int r = srow_base + k;
             uint32_t ss[4];
-            side4(in, slot, a1, r0, k, ss);
+            side4(in, slot, a1, k, ss);
             int d[4];
 #pragma unroll
             for (int j = 0; j < 4; ++j) {
@@ -507,12 +476,12 @@ __global__ void __launch_bounds__(kThreads, 1)
           }
           if (a3 > 0) {
             // every section row's end and segment-start row: rows 4t .. 4t+3
-            crossing_sync<G>();
+            cg::this_cluster().sync();
             const int r = 4 * t, owner = r / RB, lr = b * kRows + r % RB;
             const uint4 re =
-                *reinterpret_cast<const uint4*>(peer<G>(rend, owner) + lr);
+                *reinterpret_cast<const uint4*>(peer(rend, owner) + lr);
             const uint4 rs =
-                *reinterpret_cast<const uint4*>(peer<G>(rsr, owner) + lr);
+                *reinterpret_cast<const uint4*>(peer(rsr, owner) + lr);
             uint32_t run[4] = {re.x, re.y, re.z, re.w};
             const int d[4] = {r - (int)rs.x, r + 1 - (int)rs.y,
                               r + 2 - (int)rs.z, r + 3 - (int)rs.w};
@@ -538,10 +507,10 @@ __global__ void __launch_bounds__(kThreads, 1)
             warp_prefix(x[k], ex);
             if (t == 31) rend[b * kRows + row_base + k] = x[k][3];
           }
-          crossing_sync<G>();
+          cg::this_cluster().sync();
           const int r = 4 * t;
           const uint4 re = *reinterpret_cast<const uint4*>(
-              peer<G>(rend, r / RB) + b * kRows + r % RB);
+              peer(rend, r / RB) + b * kRows + r % RB);
           uint32_t tot[4] = {re.x, re.y, re.z, re.w}, before[4];
           warp_prefix(tot, before);
 #pragma unroll
@@ -574,15 +543,11 @@ __global__ void __launch_bounds__(kThreads, 1)
         default:
           break;  // c and compact: 512-row sections only (the host refuses)
       }
-      if (next >= 0 && ev < prog.nev && prog.ev_after[ev] == p) {
-        // the next section's sides, into the slots whose last reads in
-        // this section were this stage's; the block syncs first (without
-        // it, a refill within a section went wrong, see PERF.md)
-        __syncthreads();
-        for (; ev < prog.nev && prog.ev_after[ev] == p; ++ev)
-          start_fetch<G>(in, slots, prog.ev_side[ev], prog.ev_slot[ev],
-                         next + srow_base, committed, tk);
-      }
+      // the next section's sides, into the slots whose last reads in this
+      // section were this stage's
+      for (; next >= 0 && ev < prog.nev && prog.ev_after[ev] == p; ++ev)
+        start_fetch(in, slots, prog.ev_side[ev], prog.ev_slot[ev],
+                    next + srow_base, committed, tk);
     }
 #pragma unroll
     for (int k = 0; k < RW; ++k)
@@ -606,7 +571,7 @@ __global__ void __launch_bounds__(kThreads, 1)
     for (int j = 0; j < 4; ++j) fold ^= acc[k][j];
   }
   if (pc.kind == kDead && fold == kSinkKey) *sink = fold;
-  if constexpr (G > 1) crossing_sync<G>();  // peers may still read this block
+  cg::this_cluster().sync();  // the peer may still read this block
 }
 
 // The side stage p reads at each of its elements, or 0.
@@ -621,11 +586,10 @@ int side_of(const int* w) {
   }
 }
 
-// Plan `nslots` side slots: sides in order of first use, each into a slot
-// of its own, fetched a section ahead (after its last use in the section
-// before); the sides past the last slot are read at each use.  A slot is
-// never refilled within a section.
-void plan_slots(Program* prog, int nslots) {
+// Plan the side slots: each side the program reads at its elements gets a
+// slot of its own, fetched a section ahead, right after its last use in the
+// section before; the fetches in the order of the stages they follow.
+void plan_slots(Program* prog) {
   int first[kSides + 1], last[kSides + 1], slot_of[kSides + 1];
   for (int s = 0; s <= kSides; ++s) first[s] = last[s] = slot_of[s] = -1;
   for (int p = 0; p < prog->nops; ++p) {
@@ -634,21 +598,16 @@ void plan_slots(Program* prog, int nslots) {
     if (first[s] < 0) first[s] = p;
     last[s] = p;
   }
-  int used = 0;
   prog->nev = 0;
-  auto event = [&](int after, int side, int slot) {
-    const int e = prog->nev++;
-    prog->ev_after[e] = after;
-    prog->ev_side[e] = side;
-    prog->ev_slot[e] = slot;
-  };
   for (int p = 0; p < prog->nops; ++p) {
     const int s = side_of(prog->w[p]);
-    if (s < 1 || s > kSides || first[s] != p || used == nslots) continue;
-    slot_of[s] = used;
-    event(last[s], s, used++);
+    if (s < 1 || s > kSides || first[s] != p) continue;
+    const int e = prog->nev++;
+    slot_of[s] = e;
+    prog->ev_after[e] = last[s];
+    prog->ev_side[e] = s;
+    prog->ev_slot[e] = e;
   }
-  // in the order of the stages they follow
   for (int i = 1; i < prog->nev; ++i)
     for (int j = i; j > 0 && prog->ev_after[j - 1] > prog->ev_after[j]; --j) {
       int* f[3] = {prog->ev_after, prog->ev_side, prog->ev_slot};
@@ -664,20 +623,19 @@ void plan_slots(Program* prog, int nslots) {
   }
 }
 
-template <int G>
 int launch(const Inputs& in, Program prog, const long long* pieces,
            const long long* chain, uint32_t* sink, long long npieces,
            uint32_t init, cudaStream_t stream) {
-  plan_slots(&prog, Shape<G>::kSlots);
+  plan_slots(&prog);
   if (npieces <= 0) return 0;
-  const long long grid = npieces * G;
+  const long long grid = npieces * kBlocks;
   if (grid > 0x7fffffffLL) return (int)cudaErrorInvalidConfiguration;
-  constexpr size_t smem = sizeof(uint32_t) * Shape<G>::kSmemWords;
-  auto kernel = sec128_kernel<G>;
+  constexpr size_t smem = sizeof(uint32_t) * kSmemWords;
   static bool attr_set = false;  // once, before any graph capture
   if (!attr_set) {
     const cudaError_t e = cudaFuncSetAttribute(
-        kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+        sec128_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+        (int)smem);
     if (e != cudaSuccess) return (int)e;
     attr_set = true;
   }
@@ -688,31 +646,32 @@ int launch(const Inputs& in, Program prog, const long long* pieces,
   cfg.stream = stream;
   cudaLaunchAttribute attr[1];
   attr[0].id = cudaLaunchAttributeClusterDimension;
-  attr[0].val.clusterDim.x = G;
+  attr[0].val.clusterDim.x = kBlocks;
   attr[0].val.clusterDim.y = 1;
   attr[0].val.clusterDim.z = 1;
   cfg.attrs = attr;
-  cfg.numAttrs = G > 1 ? 1 : 0;
-  const cudaError_t e =
-      cudaLaunchKernelEx(&cfg, kernel, in, prog, pieces, chain, sink, init);
+  cfg.numAttrs = 1;
+  const cudaError_t e = cudaLaunchKernelEx(&cfg, sec128_kernel, in, prog,
+                                           pieces, chain, sink, init);
   if (e != cudaSuccess) return (int)e;
   return (int)cudaGetLastError();
 }
 
 }  // namespace
 
-// Launches on `stream` with `blocks` (1 or 2) blocks a section and
-// returns the CUDA error (0 on success; nothing is launched for npieces ==
-// 0).  Arguments as probe_sec_route's (k2_stage_probes.cu), with 128-row
-// sections and up to four outputs; meta is unused (compaction is a 512-row
-// stage).  program is a HOST pointer to nops x 4 int32, checked by the
-// caller; the C stage and the compaction are refused.
-extern "C" int probe_sec128_blocks(
-    const void* v, const void* s1, const void* s2, const void* s3,
-    const void* s4, const void* s5, const void* meta, void* out0, void* out1,
-    void* out2, void* out3, const void* pieces, const void* chain, void* sink,
-    const int* program, long long npieces, int nops, int v_f32, int u8mask,
-    int init, int blocks, void* stream) {
+// Launches on `stream` and returns the CUDA error (0 on success; nothing
+// is launched for npieces == 0).  Arguments as probe_sec_route's
+// (k2_stage_probes.cu), with 128-row sections and up to four outputs; meta
+// is unused (compaction is a 512-row stage).  program is a HOST pointer to
+// nops x 4 int32, checked by the caller; the C stage and the compaction
+// are refused.
+extern "C" int probe_sec128(const void* v, const void* s1, const void* s2,
+                            const void* s3, const void* s4, const void* s5,
+                            const void* meta, void* out0, void* out1,
+                            void* out2, void* out3, const void* pieces,
+                            const void* chain, void* sink, const int* program,
+                            long long npieces, int nops, int v_f32,
+                            int u8mask, int init, void* stream) {
   (void)meta;
   if (nops < 1 || nops > kMaxOps) return (int)cudaErrorInvalidValue;
   Program prog{};
@@ -729,27 +688,8 @@ extern "C" int probe_sec128_blocks(
                    static_cast<uint32_t*>(out2), static_cast<uint32_t*>(out3)},
                   v_f32,
                   u8mask};
-  const auto* pc = static_cast<const long long*>(pieces);
-  const auto* ch = static_cast<const long long*>(chain);
-  auto* sk = static_cast<uint32_t*>(sink);
-  const auto st = (cudaStream_t)stream;
-  switch (blocks) {
-    case 1: return launch<1>(in, prog, pc, ch, sk, npieces, init, st);
-    case 2: return launch<2>(in, prog, pc, ch, sk, npieces, init, st);
-    default: return (int)cudaErrorInvalidValue;
-  }
-}
-
-// probe_sec128_blocks with the default number of blocks a section.
-extern "C" int probe_sec128(const void* v, const void* s1, const void* s2,
-                            const void* s3, const void* s4, const void* s5,
-                            const void* meta, void* out0, void* out1,
-                            void* out2, void* out3, const void* pieces,
-                            const void* chain, void* sink, const int* program,
-                            long long npieces, int nops, int v_f32,
-                            int u8mask, int init, void* stream) {
-  return probe_sec128_blocks(v, s1, s2, s3, s4, s5, meta, out0, out1, out2,
-                             out3, pieces, chain, sink, program, npieces,
-                             nops, v_f32, u8mask, init, kDefaultBlocks,
-                             stream);
+  return launch(in, prog, static_cast<const long long*>(pieces),
+                static_cast<const long long*>(chain),
+                static_cast<uint32_t*>(sink), npieces, (uint32_t)init,
+                (cudaStream_t)stream);
 }

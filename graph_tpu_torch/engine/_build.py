@@ -45,7 +45,6 @@ SIGNATURES = {
     "probe_sec_stream_f32": (_P,) * 10 + (_I64,) + (_I32,) * 5 + (_P,),
     "probe_sec_route": (_P,) * 15 + (_I64,) + (_I32,) * 4 + (_P,),
     "probe_sec128": (_P,) * 15 + (_I64,) + (_I32,) * 4 + (_P,),
-    "probe_sec128_blocks": (_P,) * 15 + (_I64,) + (_I32,) * 5 + (_P,),
 }
 #: The source (``csrc/<source>.cu``) that defines each entry point.
 SOURCES = {
@@ -61,7 +60,6 @@ SOURCES = {
     "probe_sec_stream_f32": "k2_probes",
     "probe_sec_route": "k2_stage_probes",
     "probe_sec128": "k2_sec128",
-    "probe_sec128_blocks": "k2_sec128",
 }
 
 _libs: dict = {}

@@ -6,9 +6,9 @@ and ``perf_transpose.py``, written by hand in CUDA C++ for Hopper
 (``graph_tpu_torch/csrc/k2_stage_probes.cu``): :func:`sec_route` runs
 sections of 512 rows x 128 lanes (``probe_sec_route``, a cluster of four
 blocks a section), :func:`sec128` sections of 128 rows (``probe_sec128``,
-``csrc/k2_sec128.cu``: a section over a cluster of two blocks, or one on
-request, the state in registers, one barrier a stage that crosses rows,
-each side fetched once a section).
+``csrc/k2_sec128.cu``: a section over a cluster of two blocks, the state
+in registers, one barrier a stage that crosses rows, each side fetched
+once a section).
 
 A variant is a **program**: a tuple of stages ``(op, a1, a2, a3)`` run on
 each section a step reads, from ``v`` (rows, 128) f32 or int32 and up to
@@ -527,16 +527,9 @@ def operations(program, steps_list: Sequence[Steps]) -> int:
 
 # ---- wrappers --------------------------------------------------------------
 
-#: Blocks a 128-row section may be split over (a cluster of blocks).
-SEC128_BLOCKS = (1, 2)
-
-
 def _run(name: str, rows: int, v, sides, program, sched: StageSchedule,
-         init: int, blocks: Optional[int] = None) -> list:
+         init: int) -> list:
     steps_list, meta = sched.steps, sched.meta
-    if blocks is not None and blocks not in SEC128_BLOCKS:
-        raise ValueError(f"blocks must be one of {SEC128_BLOCKS}, got "
-                         f"{blocks}")
     if rows == 512 and len(steps_list) != 1:
         raise ValueError("probe_sec_route writes one output")
     for steps in steps_list:
@@ -575,8 +568,7 @@ def _run(name: str, rows: int, v, sides, program, sched: StageSchedule,
     if sched.pieces.shape[0]:
         ptrs = [s.data_ptr() for s in sides] + [None] * (MAX_SIDES - len(sides))
         optrs = [o.data_ptr() for o in outs] + [None] * (MAX_OUTS - len(outs))
-        fn = _build.load(name if blocks is None else f"{name}_blocks")
-        grid = () if blocks is None else (blocks,)
+        fn = _build.load(name)
         with torch.cuda.device(dev):
             err = fn(v.data_ptr(), *ptrs,
                      None if meta is None else meta.data_ptr(), *optrs,
@@ -584,7 +576,7 @@ def _run(name: str, rows: int, v, sides, program, sched: StageSchedule,
                      sched.sink.data_ptr(), words.ctypes.data,
                      sched.pieces.shape[0], len(words),
                      int(v.dtype == torch.float32), u8mask, int(init),
-                     *grid, torch.cuda.current_stream(dev).cuda_stream)
+                     torch.cuda.current_stream(dev).cuda_stream)
         LAUNCHES[name] += 1
         if err != 0:
             raise RuntimeError(f"{name}: kernel launch failed with CUDA "
@@ -604,10 +596,8 @@ def sec_route(v: torch.Tensor, sides: Sequence[torch.Tensor],
 
 def sec128(v: torch.Tensor, sides: Sequence[torch.Tensor],
            program: Sequence[tuple], sched: StageSchedule,
-           init: int = 0, blocks: Optional[int] = None) -> list:
+           init: int = 0) -> list:
     """A program on 128-row sections into one to four outputs (``k2_quad``
     writes four): a list of (nout * 128, 128) int32, one a :class:`Steps`
-    of ``sched``.  ``blocks`` (one of :data:`SEC128_BLOCKS`) splits each
-    section over that many blocks of a cluster; None takes the kernel's
-    default.  The result does not depend on it."""
-    return _run("probe_sec128", 128, v, sides, program, sched, init, blocks)
+    of ``sched``."""
+    return _run("probe_sec128", 128, v, sides, program, sched, init)

@@ -313,9 +313,11 @@ def _sec128_args(sm):
                                         "wa2_2", "m2_2")] + [jnp.asarray(sm)]
 
 
-#: (stages, lane_steps, row_steps): ``main``'s cases.
+#: (stages, lane_steps, row_steps): ``main``'s cases, then the ends of both
+#: scan depths, which ``probe_sec128`` unrolls.
 SEC128_CASES = ((4, 7, 7), (1, 7, 7), (2, 7, 7), (3, 7, 7), (4, 5, 1),
-                (4, 7, 3), (3, 7, 0))
+                (4, 7, 3), (3, 7, 0), (4, 0, 0), (4, 7, 0), (4, 0, 7),
+                (4, 1, 7), (2, 3, 5))
 #: The script's one section a block, and blocks of two sections.
 SEC128_LAYOUTS = {"script": (np.arange(4, dtype=np.int32), 4),
                   "pairs": (np.array([0, 0, 1, 1], np.int32), 2)}
@@ -690,91 +692,6 @@ def test_program_cache_gives_the_encoded_words_and_refuses_again():
     for _ in range(2):
         with pytest.raises(ValueError, match="scan depth"):
             ks.sec128(_t(z["contrib"]), sides, bad, sched)
-
-
-@pytest.mark.parametrize("blocks", ks.SEC128_BLOCKS)
-def test_sec128_blocks_leave_the_function(blocks):
-    """Splitting a 128-row section over a cluster of blocks is the
-    kernel's affair: on the CPU every ``blocks`` gives the plain
-    version, and any other count is refused."""
-    z = _sec128_inputs()
-    sides = [_t(z[k]) for k in ("wa_2", "m1_2", "ss_2", "wa2_2", "m2_2")]
-    c = _t(z["contrib"])
-    steps = [k2_routes.section_steps(4, 128)]
-    sched = ks.schedule(steps, "cpu")
-    got = ks.sec128(c, sides, ks.sec128_program(), sched, blocks=blocks)
-    assert torch.equal(got[0], ks.stage_plain(c, sides, ks.sec128_program(),
-                                              steps)[0])
-    with pytest.raises(ValueError, match="blocks"):
-        ks.sec128(c, sides, ks.sec128_program(), sched, blocks=blocks + 8)
-
-
-def _scan_closed_form(q, ss, lane_steps, row_steps):
-    """The truncated scan as sums: after L lane steps each lane holds the
-    sum of the last ``2^L`` lanes of its row cut at its segment's start,
-    after R row steps each row end the sum of the last ``2^R`` row ends
-    cut at its segment's start row, then the carry of the row before
-    where the segment starts above the row.  (S, rows, 128) int64."""
-    rows = q.shape[1]
-    lane = torch.arange(128)
-    rowid = torch.arange(rows)[:, None]
-    local_start = ss - rowid * 128
-    lo = torch.maximum(lane - (1 << lane_steps) + 1,
-                       local_start.clamp(min=0))
-    csum = torch.nn.functional.pad(torch.cumsum(q, 2), (1, 0))
-    x = csum[:, :, 1:] - torch.take_along_dim(csum, lo, 2)
-    if row_steps == 0:
-        return x
-    run = x[:, :, 127]
-    r = torch.arange(rows)
-    rlo = torch.maximum(r - (1 << row_steps) + 1, ss[:, :, 127] // 128)
-    rsum = torch.nn.functional.pad(torch.cumsum(run, 1), (1, 0))
-    run = rsum[:, 1:] - torch.take_along_dim(rsum, rlo, 1)
-    carry = torch.roll(run, 1, 1)[:, :, None]
-    return x + torch.where(local_start < 0, carry, 0)
-
-
-def _segment_starts(rng, nsec, mean):
-    """Random segment starts of ``nsec`` 128-row sections: each slot's
-    segment begins at the slot ``ss`` (geometric lengths of ``mean``)."""
-    n = 128 * 128
-    ss = np.empty((nsec, n), np.int64)
-    for s in range(nsec):
-        starts = np.cumsum(rng.geometric(1 / mean, n))
-        starts = np.concatenate([[0], starts[starts < n]])
-        ss[s] = starts[np.searchsorted(starts, np.arange(n), "right") - 1]
-    return ss.reshape(nsec, 128, 128)
-
-
-@pytest.mark.parametrize("lane_steps", range(8))
-def test_scan_closed_form_equals_the_steps(lane_steps):
-    """On sections whose starts are true segment starts (the routed
-    sections of ``sec128_inputs(1)``, and random segmentations with short
-    and long segments) the masked log-shift steps, truncated to any depth
-    (L, R) in 0..7 x 0..7, equal the closed form.  On arbitrary start
-    words, which ``validate`` accepts, they do not: ``probe_sec128`` runs
-    the steps."""
-    rng = np.random.default_rng(lane_steps)
-    z = _sec128_inputs()
-    cases = [(_t(z["contrib"]).to(torch.int64).view(-1, 128, 128),
-              _t(z["ss_2"].astype(np.int64)).view(-1, 128, 128))]
-    for mean in (3, 40, 2000):
-        ss = _segment_starts(rng, 2, mean)
-        q = rng.integers(-2**31, 2**31, ss.shape)
-        cases.append((_t(q), _t(ss)))
-    for q, ss in cases:
-        for row_steps in range(8):
-            np.testing.assert_array_equal(
-                ks._wrap(_scan_closed_form(q, ss, lane_steps,
-                                           row_steps)).numpy(),
-                ks._wrap(ks._scan_plain(q, ss, lane_steps,
-                                        row_steps)).numpy())
-    q, _ = cases[1]
-    arbitrary = _t(rng.integers(0, 1 << 16, q.shape))
-    if lane_steps >= 2:
-        assert not torch.equal(
-            ks._wrap(_scan_closed_form(q, arbitrary, lane_steps, 7)),
-            ks._wrap(ks._scan_plain(q, arbitrary, lane_steps, 7)))
 
 
 def test_bytes_and_operations():
