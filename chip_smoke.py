@@ -1712,10 +1712,12 @@ def k2_stage_edge_cases(dev, errs, routed):
     two 512-row sections) and random ones (not permutations), blocks never
     zeroed from a nonzero init over two passes, the scans truncated (lane
     and row steps), the compaction with random windows, u8 middles, and
-    two and four outputs; for the 128-row kernel also pieces of several
-    steps, scans at (0, 0), (7, 0), (0, 7) and (1, 7), prefix sums, f32
-    loads with a pad side by round and trunc, a load in layout 1, the
-    transpose bodies, u8 sides only, and four sides live at once."""
+    two and four outputs; for both kernels also pieces of several steps
+    (a chain of six into one block), one to four outputs, scans at both
+    depths' ends ((0, 0), (7, 0), (0, R), (1, R), (7, R); R = 7 or 9),
+    prefix sums, f32 loads with a pad side by round and trunc, a load in
+    layout 1, the transpose bodies, touches and constants, u8 sides only
+    and u8 with u16, and all sides live at once."""
     import torch
 
     from graph_tpu_torch.probes import k2_routes as kr
@@ -1769,15 +1771,62 @@ def k2_stage_edge_cases(dev, errs, routed):
     hold(errs, "probe_sec_route",
          ks.sec_route(vi, real512[1:2], ks.C_ONLY, ks.schedule([st], dev)),
          ks.stage_plain(vi, real512[1:2], ks.C_ONLY, [st])[0])
-    rand128 = [rand[0], rand[1].to(torch.uint8) & 127, rand[2], rand[3],
+
+    def layouts(rows):
+        """One to four outputs; pieces of several steps (a chain of six
+        into one block, one piece, so that the next section's v and sides
+        are fetched; a chain of ten, pieces of eight and two, added),
+        never-zeroed blocks."""
+        quad = [steps(rows, [i], 4, first=i) for i in range(4)]
+        ten = np.asarray([0] * 10 + [1] * 2, np.int64)
+        chain10 = Steps(np.arange(12, dtype=np.int64) % 6 * rows, ten,
+                        first_of_mid(ten), rows, 2, 1)
+        return (([steps(rows, [0, 1, 1], 3)], 0),
+                ([steps(rows, [1, 1], 2, [False] * 2, 2)], -5),
+                ([steps(rows, [0] * 6 + [1] * 2, 2)], 3), ([chain10], 11),
+                (quad[:2], -(1 << 31)), (quad, 1 << 30))
+
+    # the 512-row kernel's boundaries, on eight sections: full at the
+    # scans' depths, prefix sums alone and before the compaction, a load
+    # in the Y layout, the transpose probe's bodies and the C stage alone,
+    # every side added and masked, a trunc load with a pad side
+    rand8 = [t(g.integers(0, 1 << 16, (8 * 512, 128)).astype(np.uint16))
+             for _ in range(5)]
+    vf8 = t((g.random((8 * 512, 128)) * 3.8 - 1.9).astype(np.float32))
+    vi8 = t(g.integers(-2**31, 2**31, (8 * 512, 128)).astype(np.int32))
+    meta8 = kr.stages_meta(8).reshape(8, 129)
+    meta8[:, 1:65] = g.integers(0, 48, (8, 64)) * 1024
+    meta8[:, 65:] = g.integers(0, 3, (8, 64))
+    meta8 = meta8.reshape(-1)
+    programs = [(("load", "round", 1), *ks.route(1, 2), ("scan", 3, *d),
+                 *ks.route(4, 5), ("mask", 4))
+                for d in ((7, 9), (0, 0), (7, 0), (0, 9), (1, 9))]
+    programs += [
+        (("load", "int"), ("psum",)),
+        (("load", "int"), *ks.route(1, 2), ("psum",), ("compact", 3)),
+        (("load", "int", 0, 1), ("ti",), ("gather", 2, 3), ("t",),
+         ("gather", 0, 13), ("c", 1), ("ti",), ("add_touch", 5)),
+        ks.TRANSPOSE["t512x2"][1], ks.TRANSPOSE["taa512"][1], ks.C_ONLY,
+        (("load", "int"), *(("add_full", s) for s in range(1, 6)),
+         *(("mask", s) for s in range(1, 5)), ("add_const", -7)),
+        (("load", "trunc", 3), ("gather", 1, 7), ("mask", 3),
+         ("add_touch", 2))]
+    mixed8 = [rand8[0], rand8[1].to(torch.uint8), rand8[2], rand8[3],
+              rand8[4].to(torch.uint8)]
+    for sides in (rand8, mixed8, [s.to(torch.uint8) for s in rand8]):
+        for program in programs:
+            v = vi8 if program[0][1] == "int" else vf8
+            m = meta8 if any(op[0] == "compact" for op in program) else None
+            for sl, init in layouts(512):
+                sched = ks.schedule(sl, dev, m)
+                outs = ks.sec_route_outs(v, sides, program, sched, init)
+                for got, want in zip(outs, ks.stage_plain(
+                        v, sides, program, sl, sched.meta, init)):
+                    hold(errs, "probe_sec_route", got, want)
+
+    rand88 = [rand[0], rand[1].to(torch.uint8) & 127, rand[2], rand[3],
                rand[4].to(torch.uint8) & 127]
-    quad = [steps(128, [i], 4, first=i) for i in range(4)]
-    # one to four outputs; pieces of one to four steps (a chain of six
-    # into one block: pieces of four and two, added), never-zeroed blocks
-    layouts128 = (([steps(128, [0, 1, 1], 3)], 0),
-                  ([steps(128, [1, 1], 2, [False] * 2, 2)], -5),
-                  ([steps(128, [0] * 6 + [1] * 2, 2)], 3),
-                  (quad[:2], -(1 << 31)), (quad, 1 << 30))
+    layouts128 = layouts(128)
     # the 128-row kernel's boundaries: scans at the ends of both depths,
     # prefix sums, f32 loads with a pad side, a load in the Y layout, the
     # transpose probe's bodies, gathers by shift and touches, and four
@@ -1798,8 +1847,8 @@ def k2_stage_edge_cases(dev, errs, routed):
         (("load", "round", 1), *ks.route128(2, 3), ("scan", 4, 7, 7)),
         (("load", "trunc", 3), ("gather", 1, 7), ("mask", 3),
          ("add_touch", 2))]
-    u8_all = [s.to(torch.uint8) for s in rand128]
-    for sides in (real128, rand128, u8_all):
+    u8_all = [s.to(torch.uint8) for s in rand88]
+    for sides in (real128, rand88, u8_all):
         for program in programs + f32_programs:
             v = vi if program[0][1] == "int" else vf
             for sl, init in layouts128:
@@ -1831,8 +1880,8 @@ K2_STAGE_ROWS = (
 
 #: The source of each stage-probe kernel.
 K2_STAGE_SOURCES = {
-    "probe_sec_route": "graph_tpu_torch/csrc/k2_stage_probes.cu",
-    "probe_sec128": "graph_tpu_torch/csrc/k2_sec128.cu"}
+    "probe_sec_route": "graph_tpu_torch/csrc/k2_sections.cu",
+    "probe_sec128": "graph_tpu_torch/csrc/k2_sections.cu"}
 
 
 def k2_stages_graph_free(dev, sec128_inputs, stages_inputs):
@@ -1950,8 +1999,8 @@ def k2_stage_rows(errs, launches, cases, layout, stand_in, sec128_inputs,
     The library yardstick, a call and on the card: ``index_add_`` of the
     quanta into the destinations for ``full``, ``k2_128`` and ``k2_quad``
     (the same sums; the quantization and routing are not in it),
-    ``torch.gather`` by the precomputed rows for the C stage alone, one
-    ``transpose(1, 2).contiguous()`` for ``t512x2`` (half its work)."""
+    ``torch.gather`` by the precomputed rows for the C stage alone, the
+    round trip of two ``transpose(1, 2).contiguous()`` for ``t512x2``."""
     import torch
 
     from graph_tpu_torch.probes.timing import graph_ms
@@ -2021,9 +2070,10 @@ def library_call(label, v, sides, layout, stand_in, z):
         return ("torch.gather by the precomputed rows",
                 lambda: torch.gather(v, 0, idx))
     if label == "t512x2":
-        return ("v.view(-1, 512, 128).transpose(1, 2).contiguous(), one "
-                "transpose", lambda: v.view(-1, 512, 128).transpose(
-                    1, 2).contiguous())
+        return ("the round trip, as t512x2: v.view(-1, 512, 128).transpose("
+                "1, 2).contiguous().transpose(1, 2).contiguous(), two "
+                "copies", lambda: v.view(-1, 512, 128).transpose(
+                    1, 2).contiguous().transpose(1, 2).contiguous())
     return ("none: no single PyTorch call computes it", None)
 
 
@@ -2150,7 +2200,11 @@ def run(rmat):
           "kernels_built": built, "host_libraries": host_built,
           "build_s": time.perf_counter() - t0,
           "ptxas": {src: _build.ptxas_usage(log)
-                    for src, log in sorted(_build.LOGS.items())}})
+                    for src, log in sorted(_build.LOGS.items())},
+          "active_clusters": {
+              name: _build.load("probe_sec_clusters")(rows)
+              for name, rows in (("probe_sec_route", 512),
+                                 ("probe_sec128", 128))}})
 
     # 2. kernels against their plain versions at edge-case shapes, then
     # the algorithms on small graphs against the CPU path

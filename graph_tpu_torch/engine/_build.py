@@ -45,6 +45,7 @@ SIGNATURES = {
     "probe_sec_stream_f32": (_P,) * 10 + (_I64,) + (_I32,) * 5 + (_P,),
     "probe_sec_route": (_P,) * 15 + (_I64,) + (_I32,) * 4 + (_P,),
     "probe_sec128": (_P,) * 15 + (_I64,) + (_I32,) * 4 + (_P,),
+    "probe_sec_clusters": (_I32,),
 }
 #: The source (``csrc/<source>.cu``) that defines each entry point.
 SOURCES = {
@@ -58,8 +59,9 @@ SOURCES = {
     "probe_sublane": "k1_probes",
     "probe_sec_stream": "k2_probes",
     "probe_sec_stream_f32": "k2_probes",
-    "probe_sec_route": "k2_stage_probes",
-    "probe_sec128": "k2_sec128",
+    "probe_sec_route": "k2_sections",
+    "probe_sec128": "k2_sections",
+    "probe_sec_clusters": "k2_sections",
 }
 
 _libs: dict = {}

@@ -2,13 +2,14 @@
 
 Counterparts of the seven Pallas sites of ``scripts/perf_k2_stages.py``,
 ``perf_k2v2_stages.py``, ``perf_k2_route_ops.py``, ``perf_k2_sec128.py``
-and ``perf_transpose.py``, written by hand in CUDA C++ for Hopper
-(``graph_tpu_torch/csrc/k2_stage_probes.cu``): :func:`sec_route` runs
-sections of 512 rows x 128 lanes (``probe_sec_route``, a cluster of four
-blocks a section), :func:`sec128` sections of 128 rows (``probe_sec128``,
-``csrc/k2_sec128.cu``: a section over a cluster of two blocks, the state
-in registers, one barrier a stage that crosses rows, each side fetched
-once a section).
+and ``perf_transpose.py``, written by hand in CUDA C++ for Hopper as two
+instances of one kernel (``graph_tpu_torch/csrc/k2_sections.cu``):
+:func:`sec_route` runs sections of 512 rows x 128 lanes
+(``probe_sec_route``, a cluster of eight blocks a section), :func:`sec128`
+sections of 128 rows (``probe_sec128``, a cluster of two).  Each block
+holds 64 rows of a section in registers, a warp four of them; a stage
+that crosses rows takes one cluster barrier, and each side is fetched
+once a section.
 
 A variant is a **program**: a tuple of stages ``(op, a1, a2, a3)`` run on
 each section a step reads, from ``v`` (rows, 128) f32 or int32 and up to
@@ -78,8 +79,10 @@ MAX_OUTS = 4
 META_WORDS = 129
 LANE_SHIFTS = (1, 2, 4, 8, 16, 32, 64)
 #: Sections a piece of a block's chain: a cluster computes a whole section
-#: a step, so short pieces spread a mid's chain over the card.
-PIECE_STEPS = 4
+#: a step, so short pieces spread a mid's chain over the card, and long
+#: ones spread each piece's start (its first section read cold) and its
+#: epilogue over more sections.
+PIECE_STEPS = 8
 
 #: Kernel launches since the last :func:`reset_launches`.  A wrapper adds
 #: one where it launches its kernel, and nowhere else.
@@ -530,8 +533,6 @@ def operations(program, steps_list: Sequence[Steps]) -> int:
 def _run(name: str, rows: int, v, sides, program, sched: StageSchedule,
          init: int) -> list:
     steps_list, meta = sched.steps, sched.meta
-    if rows == 512 and len(steps_list) != 1:
-        raise ValueError("probe_sec_route writes one output")
     for steps in steps_list:
         if steps.h != rows:
             raise ValueError(f"steps of {steps.h} rows, sections of {rows}")
@@ -547,21 +548,20 @@ def _run(name: str, rows: int, v, sides, program, sched: StageSchedule,
     if sched.device != dev:
         raise ValueError(f"schedule is on {sched.device}, v on {dev}")
     need = max(s.rows_needed for s in steps_list)
-    # probe_sec128 reads 4 elements of a row at once
-    group = 4 if rows == 128 else 1
+    # the kernel reads 4 elements of a row at once and copies rows in
+    # 16-byte units
     _check("v", v, (torch.float32, torch.int32), dev,
            v.dim() == 2 and v.shape[1] == LANES and v.shape[0] >= need,
-           f"(>= {need}, 128)", 4 * group)
+           f"(>= {need}, 128)", 16)
     u8mask = 0
     for i, s in enumerate(sides):
         _check(f"side {i + 1}", s, (torch.uint16, torch.uint8), dev,
                s.dim() == 2 and s.shape[1] == LANES and s.shape[0] >= need,
-               f"(>= {need}, 128)", s.element_size() * group)
+               f"(>= {need}, 128)", 16)
         u8mask |= (s.dtype == torch.uint8) << i
-    # probe_sec128's outputs whose every block a piece stores whole are
-    # left unfilled
+    # outputs whose every block a piece stores whole are left unfilled
     outs = [torch.empty((s.nout * rows, LANES), dtype=torch.int32,
-                        device=dev) if rows == 128 and whole else
+                        device=dev) if whole else
             torch.full((s.nout * rows, LANES), int(init), dtype=torch.int32,
                        device=dev)
             for s, whole in zip(steps_list, sched.stored)]
@@ -590,8 +590,19 @@ def sec_route(v: torch.Tensor, sides: Sequence[torch.Tensor],
     """A program on 512-row sections (module doc): (nout * 512, 128)
     int32.  v: (rows, 128) f32 or int32; sides: up to five (rows, 128) u16
     or u8; ``sched`` from :func:`schedule` of one :class:`Steps` with ``h
-    = 512`` (and ``meta`` for ``compact``)."""
-    return _run("probe_sec_route", 512, v, sides, program, sched, init)[0]
+    = 512`` (and ``meta`` for ``compact``).  :func:`sec_route_outs` takes
+    one to four."""
+    if len(sched.steps) != 1:
+        raise ValueError("sec_route writes one output; sec_route_outs more")
+    return sec_route_outs(v, sides, program, sched, init)[0]
+
+
+def sec_route_outs(v: torch.Tensor, sides: Sequence[torch.Tensor],
+                   program: Sequence[tuple], sched: StageSchedule,
+                   init: int = 0) -> list:
+    """:func:`sec_route` into one to four outputs, as :func:`sec128`: a
+    list of (nout * 512, 128) int32, one a :class:`Steps` of ``sched``."""
+    return _run("probe_sec_route", 512, v, sides, program, sched, init)
 
 
 def sec128(v: torch.Tensor, sides: Sequence[torch.Tensor],

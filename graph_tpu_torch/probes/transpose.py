@@ -3,11 +3,11 @@
 Counterpart of ``scripts/perf_transpose.py``: 128 blocks of (512, 128)
 int32 (``default_rng(0)`` integers 0-99), each body through the K2 stage
 kernels' own machinery: ``copy`` (v + 1), ``t512x2`` (the (512, 128) to
-(128, 512) transpose and back, a cluster of four blocks a section, as
+(128, 512) transpose and back, a cluster of eight blocks a section, as
 route 1's T and T'), ``t128x8`` (each 128-row quarter transposed twice,
-+ 1, one block a quarter), ``taa512`` and ``taa128x4`` (a lane gather,
-``(lane + 5) % 128``, on 512- and 128-row sections).  Each block is
-written once.
++ 1, a cluster of two blocks a quarter), ``taa512`` and ``taa128x4`` (a
+lane gather, ``(lane + 5) % 128``, on 512- and 128-row sections).  Each
+block is written once.
 
     python -m graph_tpu_torch.probes.transpose [--reps N] [--device D]
 """

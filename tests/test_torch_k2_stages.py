@@ -82,8 +82,8 @@ def _t(a):
 # ---- the port's side: plain version and a model of the kernel -------------
 
 def kernel_model(v, sides, program, sched, init):
-    """What the stage kernels (``csrc/k2_stage_probes.cu``,
-    ``csrc/k2_sec128.cu``) compute from a schedule: each
+    """What the stage kernels (``csrc/k2_sections.cu``'s two instances)
+    compute from a schedule: each
     piece's sums of its sections' program values from its start value,
     then a store, an add into the init-filled output it names, or nothing
     (a dead piece)."""
@@ -629,6 +629,43 @@ def test_kernel_model_equals_plain_on_random_steps(seed):
         model = kernel_model(vt, st, program, sched, init)
         for a, b in zip(plain, model):
             assert torch.equal(a, b)
+
+
+@pytest.mark.parametrize("seed", range(3))
+def test_kernel_model_equals_plain_at_512_rows(seed):
+    """``sec_route_outs``: random out blocks, zero flags, sections,
+    passes and chains longer than a piece, into one to four outputs, on
+    random routes with the C stage, the scan and the compaction;
+    ``sec_route`` writes one output and refuses more."""
+    g = np.random.default_rng(100 + seed)
+    nsec = 3
+    vi = g.integers(-2**31, 2**31, (nsec * 512, 128)).astype(np.int32)
+    sides = [g.integers(0, 1 << 16, (nsec * 512, 128)).astype(np.uint16)
+             for _ in range(5)]
+    meta = k2_routes.stages_meta(nsec).reshape(nsec, 129)
+    meta[:, 1:65] = g.integers(0, 48, (nsec, 64)) * 1024
+    meta[:, 65:] = g.integers(0, 3, (nsec, 64))
+    steps_list = []
+    for _ in range(1 + seed % 4 + seed // 2):
+        n = int(g.integers(1, 20))
+        steps_list.append(Steps(g.integers(0, nsec, n) * 512,
+                                g.integers(0, 2, n).astype(np.int64),
+                                g.random(n) < 0.2, 512, 2,
+                                int(g.integers(1, 3))))
+    init = int(g.integers(INT32_MIN, 1 << 31))
+    vt, st = _t(vi), [_t(s) for s in sides]
+    for program in (ks.FULL_INT, (("load", "int"), *ks.route(1, 2),
+                                  ("psum",), ("compact", 3))):
+        m = meta.reshape(-1) if program[-1][0] == "compact" else None
+        sched = ks.schedule(steps_list, "cpu", m)
+        plain = ks.sec_route_outs(vt, st, program, sched, init)
+        model = kernel_model(vt, st, program, sched, init)
+        assert len(plain) == len(steps_list)
+        for a, b in zip(plain, model):
+            assert torch.equal(a, b)
+        if len(steps_list) > 1:
+            with pytest.raises(ValueError, match="one output"):
+                ks.sec_route(vt, st, program, sched, init)
 
 
 def test_schedule_merges_outputs():

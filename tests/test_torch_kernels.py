@@ -502,3 +502,94 @@ def test_stage_probes_match_plain_on_card(cuda_device, seed):
         for a, b in zip(got, want):
             assert _bits_equal(a, b), program
     assert {k: ks.LAUNCHES[k] - before[k] for k in before} == launched
+
+
+def _stage_512_cases():
+    """The 512-row edge cases (as chip_smoke's): the route program at the
+    scan's lane and row depths (0, 0), (7, 0), (0, 9), (1, 9), (7, 9);
+    prefix sums alone and before the compaction; a load in the Y layout
+    with TI, gathers, T and the C stage; the transpose bodies and the C
+    stage alone; every side added and masked and a constant; a trunc
+    load with a pad side, a gather by shift 7, a mask and a touch."""
+    from graph_tpu_torch.probes import k2_stage_kernels as ks
+
+    programs = [(("load", "round", 1), *ks.route(1, 2), ("scan", 3, *d),
+                 *ks.route(4, 5), ("mask", 4))
+                for d in ((7, 9), (0, 0), (7, 0), (0, 9), (1, 9))]
+    return programs + [
+        (("load", "int"), ("psum",)),
+        (("load", "int"), *ks.route(1, 2), ("psum",), ("compact", 3)),
+        (("load", "int", 0, 1), ("ti",), ("gather", 2, 3), ("t",),
+         ("gather", 0, 13), ("c", 1), ("ti",), ("add_touch", 5)),
+        ks.TRANSPOSE["t512x2"][1], ks.TRANSPOSE["taa512"][1], ks.C_ONLY,
+        (("load", "int"), *(("add_full", s) for s in range(1, 6)),
+         *(("mask", s) for s in range(1, 5)), ("add_const", -7)),
+        (("load", "trunc", 3), ("gather", 1, 7), ("mask", 3),
+         ("add_touch", 2))]
+
+
+def _stage_512_layouts():
+    """(steps of each output, init): three sections with a mid of one;
+    a block never zeroed over two passes; a chain of six into one block
+    (one piece: the next section's v and sides fetched ahead); a chain of
+    ten (pieces of eight and two, added); two and four outputs."""
+    from graph_tpu_torch.probes.k2_layout import first_of_mid
+
+    def steps(sm, nout, zero=None, passes=1, first=0, row0=None):
+        sm = np.asarray(sm, np.int64)
+        if row0 is None:
+            row0 = first + np.arange(len(sm), dtype=np.int64)
+        return k2_layout.Steps(
+            np.asarray(row0, np.int64) * 512, sm,
+            np.asarray(first_of_mid(sm) if zero is None else zero, np.bool_),
+            512, nout, passes)
+
+    quad = [steps([i], 4, first=i) for i in range(4)]
+    return (([steps([0, 1, 1], 3)], 0),
+            ([steps([1, 1], 2, [False] * 2, 2)], -5),
+            ([steps([0] * 6 + [1] * 2, 2)], 3),
+            ([steps([0] * 10 + [1] * 2, 2, row0=np.arange(12) % 6)], 11),
+            (quad[:2], -(1 << 31)), (quad, 1 << 30))
+
+
+@pytest.mark.requires_cuda
+@pytest.mark.parametrize("widths", ["u16", "u8 and u16", "u8"])
+def test_stage_512_edge_cases_match_plain_on_card(cuda_device, widths):
+    """``probe_sec_route`` bit for bit against its plain version on every
+    512-row edge case, one to four outputs, sides of one width or both."""
+    from graph_tpu_torch.probes import k2_routes, k2_stage_kernels as ks
+
+    g = np.random.default_rng(43)
+    dev = cuda_device
+
+    def t(a):
+        return torch.from_numpy(a).to(dev)
+
+    u16 = [t(g.integers(0, 1 << 16, (8 * 512, 128)).astype(np.uint16))
+           for _ in range(5)]
+    sides = {"u16": u16,
+             "u8 and u16": [u16[0], u16[1].to(torch.uint8), u16[2], u16[3],
+                            u16[4].to(torch.uint8)],
+             "u8": [s.to(torch.uint8) for s in u16]}[widths]
+    vf = t((g.random((8 * 512, 128)) * 3.8 - 1.9).astype(np.float32))
+    vi = t(g.integers(-2**31, 2**31, (8 * 512, 128)).astype(np.int32))
+    meta = k2_routes.stages_meta(8).reshape(8, 129)
+    meta[:, 1:65] = g.integers(0, 48, (8, 64)) * 1024
+    meta[:, 65:] = g.integers(0, 3, (8, 64))
+    meta = meta.reshape(-1)
+    before = ks.LAUNCHES["probe_sec_route"]
+    n = 0
+    for program in _stage_512_cases():
+        v = vi if program[0][1] == "int" else vf
+        m = meta if any(op[0] == "compact" for op in program) else None
+        for steps_list, init in _stage_512_layouts():
+            sched = ks.schedule(steps_list, dev, m)
+            got = ks.sec_route_outs(v, sides, program, sched, init)
+            want = ks.stage_plain(v, sides, program, steps_list, sched.meta,
+                                  init)
+            torch.cuda.synchronize()
+            assert len(got) == len(steps_list)
+            for a, b in zip(got, want):
+                assert _bits_equal(a, b), (program, init)
+            n += 1
+    assert ks.LAUNCHES["probe_sec_route"] - before == n
