@@ -1713,11 +1713,11 @@ def k2_stage_edge_cases(dev, errs, routed):
     zeroed from a nonzero init over two passes, the scans truncated (lane
     and row steps), the compaction with random windows, u8 middles, and
     two and four outputs; for both kernels also pieces of several steps
-    (a chain of six into one block), one to four outputs, scans at both
-    depths' ends ((0, 0), (7, 0), (0, R), (1, R), (7, R); R = 7 or 9),
-    prefix sums, f32 loads with a pad side by round and trunc, a load in
-    layout 1, the transpose bodies, touches and constants, u8 sides only
-    and u8 with u16, and all sides live at once."""
+    (chains of six and ten into one block), one to four outputs, scans at
+    both depths' ends ((0, 0), (7, 0), (0, R), (1, R), (7, R); R = 7 or
+    9), prefix sums, f32 loads with a pad side by round and trunc, a load
+    in layout 1, the transpose bodies, touches and constants, u8 sides
+    only and u8 with u16, and all sides live at once."""
     import torch
 
     from graph_tpu_torch.probes import k2_routes as kr
@@ -1824,9 +1824,8 @@ def k2_stage_edge_cases(dev, errs, routed):
                         v, sides, program, sl, sched.meta, init)):
                     hold(errs, "probe_sec_route", got, want)
 
-    rand88 = [rand[0], rand[1].to(torch.uint8) & 127, rand[2], rand[3],
+    rand128 = [rand[0], rand[1].to(torch.uint8) & 127, rand[2], rand[3],
                rand[4].to(torch.uint8) & 127]
-    layouts128 = layouts(128)
     # the 128-row kernel's boundaries: scans at the ends of both depths,
     # prefix sums, f32 loads with a pad side, a load in the Y layout, the
     # transpose probe's bodies, gathers by shift and touches, and four
@@ -1847,11 +1846,11 @@ def k2_stage_edge_cases(dev, errs, routed):
         (("load", "round", 1), *ks.route128(2, 3), ("scan", 4, 7, 7)),
         (("load", "trunc", 3), ("gather", 1, 7), ("mask", 3),
          ("add_touch", 2))]
-    u8_all = [s.to(torch.uint8) for s in rand88]
-    for sides in (real128, rand88, u8_all):
+    u8_all = [s.to(torch.uint8) for s in rand128]
+    for sides in (real128, rand128, u8_all):
         for program in programs + f32_programs:
             v = vi if program[0][1] == "int" else vf
-            for sl, init in layouts128:
+            for sl, init in layouts(128):
                 outs = ks.sec128(v, sides, program, ks.schedule(sl, dev),
                                  init)
                 for got, want in zip(outs, ks.stage_plain(

@@ -595,8 +595,8 @@ __global__ void __launch_bounds__(kThreads, 1)
   int b = 0;       // the buffer of the next crossing stage
   int committed = 0;  // cp.async groups committed (mod 256)
   uint32_t tk[2] = {0, 0};
-  // the first section's v and sides (a longer piece fetches the next
-  // section's during this one)
+  // the first section's sides (its v is read from device memory; a longer
+  // piece fetches the next section's during this one)
   if (count > 0) {
     const long long row0 = __ldg(chain + off);
     for (int e = 0; e < prog.nev; ++e)

@@ -548,8 +548,7 @@ def _run(name: str, rows: int, v, sides, program, sched: StageSchedule,
     if sched.device != dev:
         raise ValueError(f"schedule is on {sched.device}, v on {dev}")
     need = max(s.rows_needed for s in steps_list)
-    # the kernel reads 4 elements of a row at once and copies rows in
-    # 16-byte units
+    # the kernel reads 4 elements of a row at once
     _check("v", v, (torch.float32, torch.int32), dev,
            v.dim() == 2 and v.shape[1] == LANES and v.shape[0] >= need,
            f"(>= {need}, 128)", 16)
@@ -557,7 +556,7 @@ def _run(name: str, rows: int, v, sides, program, sched: StageSchedule,
     for i, s in enumerate(sides):
         _check(f"side {i + 1}", s, (torch.uint16, torch.uint8), dev,
                s.dim() == 2 and s.shape[1] == LANES and s.shape[0] >= need,
-               f"(>= {need}, 128)", 16)
+               f"(>= {need}, 128)", s.element_size() * 4)
         u8mask |= (s.dtype == torch.uint8) << i
     # outputs whose every block a piece stores whole are left unfilled
     outs = [torch.empty((s.nout * rows, LANES), dtype=torch.int32,
