@@ -32,6 +32,14 @@ m = 67,108,864, seed 42):
   relabeled by degree on the card (its invariants checked); and written
   and read back as a binary snapshot.  Its set-up seconds are printed
   with the card's name and power limit;
+* the user's surfaces on that Graph500 file, with no device given:
+  ``api.Graph.load`` into ``wcc()`` and ``api.DiGraph.load`` into
+  ``page_rank()``, a ``server.service.GraphService`` create / list /
+  compute / remove (its stored column cut into 420 batches of 10,000
+  rows), the same over Flight where pyarrow is installed, and
+  ``cli.main(["page-rank", ...])`` in this process, each held to the
+  ``pagerank`` and ``wcc`` phases bit for bit; the API's PageRank writes
+  its plan to a cache of the phase's own, and the CLI reads it back;
 * ``global_triangle_count`` on the same edges built DEDUPLICATED on the
   card (distinct triangles), unchanged by ``make_degree_ordered``, with
   its host preparation, card seconds and one slab of each join design
@@ -94,6 +102,10 @@ import numpy as np
 
 ROOT = os.path.dirname(os.path.abspath(__file__))
 SCALE = 22
+#: The builder phase's Graph500 file of the RMAT edges, which the
+#: api_server phase loads again through the user's surfaces.
+GRAPH500_FILE = os.path.join(ROOT, ".cache", "builder",
+                             f"rmat_s{SCALE}.graph500")
 ITERS = 20
 #: H100 SXM data sheet: HBM3 rate, and the float32 rate outside the
 #: tensor cores (the table's entry for scalar arithmetic; the kernels'
@@ -127,6 +139,11 @@ PATH_KERNELS = {"pagerank": ("k1_gather", "k2_reduce"),
                 "sssp": ("k1_gather_weighted", "k2_reduce_min"),
                 "builder_pagerank": ("k1_gather", "k2_reduce"),
                 "builder_wcc": ("k1_gather", "k2_reduce_min"),
+                "api_pagerank": ("k1_gather", "k2_reduce"),
+                "api_wcc": ("k1_gather", "k2_reduce_min"),
+                "server_pagerank": ("k1_gather", "k2_reduce"),
+                "flight_pagerank": ("k1_gather", "k2_reduce"),
+                "cli_pagerank": ("k1_gather", "k2_reduce"),
                 "engines_pagerank_logged": ("k1_gather", "k2_reduce"),
                 "engines_sssp_grid": ("k1_gather_weighted", "k2_reduce_min"),
                 "ooc_pagerank": ("k1_gather", "k2_reduce"),
@@ -614,7 +631,7 @@ def builder_phase(gtt, kernels, dev, card, src, dst, n, graph, pr_cfg,
                   f"{what}: {f} differ")
 
     # 1. Graph500 file -> build_directed -> page_rank, bit for bit
-    g500 = os.path.join(cache, f"rmat_s{SCALE}.graph500")
+    g500 = GRAPH500_FILE
     if not os.path.exists(g500):
         timed("graph500_write_s", lambda: write_graph500(g500, src, dst))
     b = gtt.GraphBuilder(device=dev).file_format(gtt.Graph500Input())
@@ -733,6 +750,222 @@ def relabel_invariants(g, rel):
     check(rel.edge_count == g.edge_count and rel.layout.name == "SORTED",
           f"relabel: {rel.edge_count} edges, layout {rel.layout}")
     return {"max_degree": int(deg[0]), "tied_pairs": int(tie.sum())}
+
+
+def api_server_phase(kernels, card, n, m, pr_cfg, pr_res, wcc_labels,
+                     wcc_rounds):
+    """The user's surfaces at full scale, on the builder phase's Graph500
+    file, each with no device given (so on the card): ``Graph.load`` into
+    ``wcc()`` and ``DiGraph.load`` into ``page_rank()`` through the API,
+    a ``GraphService`` create / list / compute / remove, the same over
+    Flight where pyarrow is installed, and the CLI's page-rank in this
+    process.  Each is held to the pagerank and wcc phases bit for bit.
+    The API's PageRank writes its relabel plan to a plan cache of the
+    phase's own and the CLI (``--plan-cache``) loads it; the service and
+    Flight build theirs, since a build on the card takes a few hundredths
+    of a second and a cache hit seconds (the host hashes the edges)."""
+    import importlib.util
+    import logging
+    import shutil
+    import tempfile
+
+    import torch
+    from graph_tpu_torch import cli
+    from graph_tpu_torch.api import DiGraph, FileFormat, Graph
+    from graph_tpu_torch.engine.plan import PLAN_CACHE_ENV
+    from graph_tpu_torch.server import catalog
+    from graph_tpu_torch.server.service import GraphService
+
+    want = pr_res.scores.cpu().numpy()
+    iters = pr_res.ran_iterations
+    pr_kw = {"max_iterations": pr_cfg.max_iterations,
+             "tolerance": pr_cfg.tolerance,
+             "damping_factor": pr_cfg.damping_factor}
+    secs, out, launches = {}, {}, {"pagerank": {}, "wcc": {}}
+    torch.cuda.reset_peak_memory_stats()
+
+    def timed(name, fn):
+        _sync()
+        t0 = time.perf_counter()
+        res = fn()
+        _sync()
+        secs[name] = time.perf_counter() - t0
+        return res
+
+    def same_scores(got, what):
+        check(got.dtype == np.float32 and np.array_equal(
+            got.view(np.uint32), want.view(np.uint32)),
+            f"{what}: PageRank scores differ from the pagerank phase's")
+
+    cache = tempfile.mkdtemp(prefix="plans-", dir=os.path.join(ROOT, ".cache"))
+    saved = os.environ.pop(PLAN_CACHE_ENV, None)
+    try:
+        # 1. API WCC, without the plan cache
+        ug = timed("api_graph_load_s", lambda: Graph.load(
+            GRAPH500_FILE, file_format=FileFormat.Graph500))
+        check(ug.device.type == "cuda", f"Graph.load: graph on {ug.device}")
+        check((ug.node_count(), ug.edge_count()) == (n, m),
+              f"Graph.load: {ug.node_count()} nodes, {ug.edge_count()} edges")
+        w, launches["wcc"]["api"] = drive(
+            kernels, "api_wcc", lambda: timed("api_wcc_s", ug.wcc),
+            lambda r: wcc_rounds)
+        check(np.array_equal(w.components(), wcc_labels.cpu().numpy()),
+              "API: WCC components differ from the wcc phase's")
+        out["api_wcc_run_s"] = w.micros / 1e6
+        del ug, w
+        free_device()
+
+        # 2. API PageRank: builds the relabel plan and writes it to the cache
+        os.environ[PLAN_CACHE_ENV] = cache
+        dg = timed("api_digraph_load_s", lambda: DiGraph.load(
+            GRAPH500_FILE, file_format=FileFormat.Graph500))
+        check(dg.device.type == "cuda", f"DiGraph.load: graph on {dg.device}")
+        pr, launches["pagerank"]["api"] = drive(
+            kernels, "api_pagerank",
+            lambda: timed("api_pagerank_s", lambda: dg.page_rank(**pr_kw)),
+            lambda r: r.ran_iterations)
+        check(pr.ran_iterations == iters,
+              f"API: PageRank ran {pr.ran_iterations} iterations")
+        same_scores(pr.scores(), "API")
+        out["api_pagerank_run_s"] = pr.micros / 1e6
+        check(len(os.listdir(cache)) == 1,
+              f"plan cache: {os.listdir(cache)} (one relabel plan expected)")
+        del dg, pr
+        free_device()
+        del os.environ[PLAN_CACHE_ENV]
+
+        # 3. the service, on the card by default
+        svc = GraphService()
+        check(svc.device.type == "cuda", f"GraphService on {svc.device}")
+        created = timed("service_create_s", lambda: svc.action(
+            "create", json.dumps({"graph_name": "rmat",
+                                  "file_format": "Graph500",
+                                  "path": GRAPH500_FILE,
+                                  "orientation": "Directed"}).encode()))
+        check((created["node_count"], created["edge_count"]) == (n, m),
+              f"service create: {created}")
+        check(svc.catalog.get("rmat").device.type == "cuda",
+              "service: graph not on the card")
+        listed = timed("service_list_s", lambda: svc.action("list", b"{}"))
+        check(listed == {"graph_infos": [{
+            "graph_name": "rmat", "graph_type": "Directed",
+            "node_count": n, "edge_count": m}]}, f"service list: {listed}")
+        compute = json.dumps({"graph_name": "rmat",
+                              "algorithm": {"PageRank": pr_kw},
+                              "property_key": "page_rank"}).encode()
+        r, launches["pagerank"]["server"] = drive(
+            kernels, "server_pagerank",
+            lambda: timed("service_compute_s",
+                          lambda: svc.action("compute", compute)),
+            lambda r: r["algo_result"]["iterations"])
+        check(r["algo_result"]["iterations"] == iters,
+              f"service: PageRank ran {r['algo_result']['iterations']}")
+        field, values = svc.properties.get("rmat", "page_rank")
+        check(field == "page_rank", f"service: the column is {field!r}")
+        same_scores(values, "service")
+        out["service_batches"] = len(catalog.chunks(values))
+        check(out["service_batches"] == -(-n // catalog.CHUNK_SIZE),
+              f"service: {out['service_batches']} batches of "
+              f"{catalog.CHUNK_SIZE} rows for {n} nodes")
+        removed = timed("service_remove_s", lambda: svc.action(
+            "remove", json.dumps({"graph_name": "rmat"}).encode()))
+        check(removed["graph_name"] == "rmat" and not svc.catalog.list(),
+              f"service remove: {removed}")
+        del svc, values
+        free_device()
+
+        # 4. the same over Flight, where pyarrow is installed
+        if importlib.util.find_spec("pyarrow") is None:
+            out["flight"] = "not run: pyarrow is not installed on this machine"
+        else:
+            out["flight"], launches["pagerank"]["flight"] = flight_round_trip(
+                kernels, compute, iters, same_scores, timed, n)
+            free_device()
+
+        # 5. the CLI in this process with its defaults (the pagerank
+        # phase's error after 20 iterations is above 1e-4, so it runs 20
+        # too), loading the API's plan from the cache; its log records
+        # are kept, and the root logger its basicConfig sets up restored
+        argv = ["page-rank", "-p", GRAPH500_FILE, "-f", "graph500",
+                "-r", "1", "-w", "0", "--plan-cache", cache]
+        records = []
+        handler = logging.Handler()
+        handler.emit = records.append
+        port_log, root = logging.getLogger("graph_tpu_torch"), logging.getLogger()
+        root_state = (root.level, root.handlers[:])
+        port_log.addHandler(handler)
+        port_log.setLevel(logging.INFO)
+        try:
+            rc, launches["pagerank"]["cli"] = drive(
+                kernels, "cli_pagerank",
+                lambda: timed("cli_s", lambda: cli.main(argv)),
+                lambda rc: sum(r.args[0] for r in records
+                               if r.msg.startswith("PageRank ran")))
+        finally:
+            port_log.removeHandler(handler)
+            port_log.setLevel(logging.NOTSET)
+            root.setLevel(root_state[0])
+            root.handlers[:] = root_state[1]
+        ran = [r.args for r in records if r.msg.startswith("PageRank ran")]
+        check(rc == 0 and ran == [(iters, pr_res.error)],
+              f"CLI: rc {rc}, logged PageRank runs {ran}")
+        check(any(r.msg.startswith("EdgePlan cache hit") for r in records),
+              "CLI: the API's plan was not loaded from the cache")
+        out["cli_iterations"], out["cli_error"] = ran[0]
+        # the CLI's one run, the plan cache hit in it
+        out["cli_run_s"] = [r.args[2] for r in records
+                            if r.msg.startswith("Run ")][0]
+        free_device()
+    finally:
+        if saved is None:
+            os.environ.pop(PLAN_CACHE_ENV, None)
+        else:
+            os.environ[PLAN_CACHE_ENV] = saved
+        shutil.rmtree(cache)
+    emit({"phase": "api_server", "card": card, "scale": SCALE, "n": n,
+          "m": m, "iterations": iters, "wcc_rounds": wcc_rounds,
+          "seconds": secs, **out, "launches": launches,
+          "peak_mem_gb": torch.cuda.max_memory_allocated() / 1e9})
+    return launches
+
+
+def flight_round_trip(kernels, compute, iters, same_scores, timed, n):
+    """create / compute / do_get / remove through a ``pyarrow.flight``
+    client against a ``GraphFlightServer`` on loopback (on the card).
+    Returns the line's entry and the compute's launches."""
+    import pyarrow.flight as flight
+    from graph_tpu_torch.server.flight import GraphFlightServer
+
+    def action(client, name, body):
+        res = client.do_action(flight.Action(name, body))
+        return json.loads(next(iter(res)).body.to_pybytes())
+
+    server = GraphFlightServer("grpc://localhost:0")
+    try:
+        client = flight.connect(f"grpc://localhost:{server.port}")
+        try:
+            timed("flight_create_s", lambda: action(client, "create", json.dumps(
+                {"graph_name": "rmat", "file_format": "Graph500",
+                 "path": GRAPH500_FILE}).encode()))
+            r, launches = drive(
+                kernels, "flight_pagerank",
+                lambda: timed("flight_compute_s",
+                              lambda: action(client, "compute", compute)),
+                lambda r: r["algo_result"]["iterations"])
+            check(r["algo_result"]["iterations"] == iters,
+                  f"Flight: PageRank ran {r['algo_result']['iterations']}")
+            ticket = flight.Ticket(json.dumps(r["property_id"]).encode())
+            table = timed("flight_get_s",
+                          lambda: client.do_get(ticket).read_all())
+            batches = len(table.to_batches())
+            same_scores(table.column("page_rank").to_numpy(), "Flight")
+            action(client, "remove", json.dumps({"graph_name": "rmat"}).encode())
+        finally:
+            client.close()
+    finally:
+        server.shutdown()
+    check(batches == -(-n // 10_000), f"Flight: {batches} record batches")
+    return {"batches": batches}, launches
 
 
 def launches_of(*runs):
@@ -2294,6 +2527,8 @@ def run(rmat):
                         wcc_labels)
     emit({"phase": "memory",
           "peak_mem_gb": torch.cuda.max_memory_allocated() / 1e9})
+    # the user's surfaces on the builder phase's Graph500 file
+    api = api_server_phase(k, card, n, m, cfg, res, wcc_labels, wcc_rounds)
 
     # 7. triangle count; the segment-op engines; the out-of-core engine
     triangles_phase(gtt, dev, src, dst, n)
@@ -2312,9 +2547,11 @@ def run(rmat):
     by_path = {
         "pagerank": {"pagerank": pr_launches,
                      "builder": bld["pagerank_launches"],
+                     **api["pagerank"],
                      "engines (log_progress)": eng_launches["pagerank_logged"],
                      "ooc (page_rank_ooc)": ooc_launches["pagerank"]},
         "wcc": {"wcc": wcc_launches, "builder": bld["wcc_launches"],
+                **api["wcc"],
                 "ooc (wcc_ooc)": ooc_launches["wcc"]},
         "sssp": {"sssp": sssp_launches,
                  "engines (grid, plan)": eng_launches["sssp_grid_plan"],

@@ -11,7 +11,9 @@ adjacency-list graphs, the EdgeEngine with its hand-written CUDA kernels
 K1 and K2 and its whole semiring surface (sums, mins, weighted
 combines), the out-of-core engine that streams slab plans from pinned
 host memory, PageRank, WCC and SSSP on every engine (the plan engine and
-the segment-op engines), and triangle counting.
+the segment-op engines), triangle counting, and the user's surfaces: the
+graph_mate-style ``api`` (``Graph``/``DiGraph``), the ``cli`` and the
+Arrow Flight ``server``.
 
 Entry points run on the card unless the caller passes ``device="cpu"``,
 and raise when no card is present and no device is given.
@@ -23,7 +25,8 @@ from graph_tpu_torch.algos import (
     global_triangle_count, page_rank, page_rank_reference, wcc,
     wcc_afforest, wcc_afforest_dss, wcc_baseline, wcc_components)
 from graph_tpu_torch.builder import GraphBuilder
-from graph_tpu_torch.engine import EdgeEngine, EdgePlan, OocEdgeEngine
+from graph_tpu_torch.engine import (
+    EdgeEngine, EdgePlan, OocEdgeEngine, build_plan)
 from graph_tpu_torch.errors import (
     GraphError, InvalidIdType, InvalidNodeValues, InvalidPartitioning)
 from graph_tpu_torch.graph import (
@@ -60,6 +63,7 @@ __all__ = [
     "WccConfig",
     "WccResult",
     "build_directed",
+    "build_plan",
     "build_undirected",
     "build_undirected_host",
     "csr_from_coo",

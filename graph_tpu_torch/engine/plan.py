@@ -43,6 +43,8 @@ from graph_tpu_torch.device import resolve_device
 logger = logging.getLogger(__name__)
 
 FORMAT_VERSION = 3  # v2: slot_w (edge values); v3: n_src
+#: The environment variable naming the plan cache directory.
+PLAN_CACHE_ENV = "GRAPH_TPU_TORCH_PLAN_CACHE"
 
 
 @dataclasses.dataclass(frozen=True)
@@ -261,7 +263,7 @@ def load_or_build_plan(src, dst, n: int, cache_dir: Optional[str] = None,
     plan snapshots; a hit skips the build.  Without either, it builds.
     """
     if cache_dir is None:
-        cache_dir = os.environ.get("GRAPH_TPU_TORCH_PLAN_CACHE")
+        cache_dir = os.environ.get(PLAN_CACHE_ENV)
     if not cache_dir:
         return build_plan(src, dst, n, relabel=relabel, device=device,
                           values=values)
