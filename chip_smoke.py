@@ -45,6 +45,16 @@ m = 67,108,864, seed 42):
   its host preparation, card seconds and one slab of each join design
   timed; at scale 16 the distinct count against scipy and the SORTED
   multiset count against a host model; the native orientation must load;
+* the multi-device paths on a mesh of four shards sharing the card
+  (``Mesh([cuda] * 4)``): the row-block engines of PageRank, WCC and
+  SSSP built (partition, halo and plans timed) and their ``spmv``,
+  ``smin_int`` and ``relax`` held bit for bit to the single-device
+  engines'; ``page_rank``, ``wcc``, ``delta_stepping`` and
+  ``global_triangle_count`` through ``use_mesh``, held to the phases
+  above (PageRank to the same iterations and 1e-6, the rest exactly),
+  with K1 and K2 launched exactly once a shard an iteration; and both
+  PageRank routes timed, ``page_rank_rowblock`` against
+  ``page_rank_sharded`` (blocking and ring, bit-equal to each other);
 * the segment-op engines (PageRank ``cumsum``/``scatter``, the logged
   plan PageRank, WCC ``xla``, SSSP ``xla``), each held to the plan
   path's result, and SSSP ``plan``/``frontier``/``xla`` on bench.py's
@@ -133,6 +143,8 @@ SCATTER_ATOL = 1e-9
 #: Timed calls a variant of the stage probes on the RMAT stand-in (their
 #: scripts' own count, 17 at scale 22, cut for the command's time).
 STAGE_RMAT_REPS = 5
+#: Shards of the mesh phase's mesh, all on the one card.
+MESH_SHARDS = 4
 #: The kernels each path must launch at least once per iteration.
 PATH_KERNELS = {"pagerank": ("k1_gather", "k2_reduce"),
                 "wcc": ("k1_gather", "k2_reduce_min"),
@@ -148,7 +160,10 @@ PATH_KERNELS = {"pagerank": ("k1_gather", "k2_reduce"),
                 "engines_sssp_grid": ("k1_gather_weighted", "k2_reduce_min"),
                 "ooc_pagerank": ("k1_gather", "k2_reduce"),
                 "ooc_wcc": ("k1_gather", "k2_reduce_min"),
-                "ooc_sssp": ("k1_gather_weighted", "k2_reduce_min")}
+                "ooc_sssp": ("k1_gather_weighted", "k2_reduce_min"),
+                "mesh_pagerank": ("k1_gather", "k2_reduce"),
+                "mesh_wcc": ("k1_gather", "k2_reduce_min"),
+                "mesh_sssp": ("k1_gather_weighted", "k2_reduce_min")}
 WIKI = np.array([(1, 2), (2, 1), (4, 0), (4, 1), (5, 4), (5, 1), (5, 6),
                  (6, 1), (6, 5), (7, 1), (7, 5), (8, 1), (8, 5), (9, 1),
                  (9, 5), (10, 1), (10, 5), (11, 5), (12, 5)])
@@ -1023,7 +1038,8 @@ def triangles_phase(gtt, dev, src, dst, n):
     full slab; at scale 16 the distinct count against scipy (and the
     sort join's count against the lookup join's) and the multiset count
     (SORTED, relabeled) against a host model.  Fails unless the native
-    orientation library loaded."""
+    orientation library loaded.  Returns the scale-22 count and its
+    DEDUPLICATED graph."""
     import torch
 
     from graph_tpu_torch.algos import triangle_count as tc
@@ -1061,7 +1077,7 @@ def triangles_phase(gtt, dev, src, dst, n):
           f"triangles: {res_rel.triangles} after make_degree_ordered, "
           f"{res.triangles} before")
     out["relabeled"] = {"triangles": res_rel.triangles, **res_rel.phases}
-    del rel, ug
+    del rel
     free_device()
 
     # the two joins on one full slab of the 64-wide class, same wedges
@@ -1122,7 +1138,7 @@ def triangles_phase(gtt, dev, src, dst, n):
                                         "multiset wedges", **cm.phases}}
     emit({"phase": "triangles", "scale": SCALE, "n": n, "m": int(src.size),
           **out})
-    return out
+    return res.triangles, ug
 
 
 def grid_edges(side):
@@ -1497,6 +1513,181 @@ def ooc_phase(gtt, kernels, dev, errs, src, dst, w, n, start, x_host,
     out["peak_mem_gb"] = max(peaks + [torch.cuda.max_memory_allocated()]) / 1e9
     emit({"phase": "ooc", "scale": SCALE, "n_slabs": slabs, **out})
     return out, launches
+
+
+def mesh_check(what, got, want, launches, shards):
+    """A one-shot row-block op against the single-device engine's, bit
+    for bit; its launches: one of each of two kernels a shard."""
+    _sync()
+    e = bits_diff(got, want)
+    check(e == 0, f"mesh: row-block {what} differs from the single "
+          f"engine's (max {e})")
+    used = {k: v for k, v in launches.items() if v}
+    check(len(used) == 2 and set(used.values()) == {shards},
+          f"mesh: row-block {what} launched {launches}")
+    return {"bits_differing": e, "launches": used}
+
+
+def drive_mesh(kernels, path, fn, iterations_of, shards):
+    """:func:`drive` for a sharded path: each of its kernels must launch
+    exactly once a shard an iteration."""
+    res, launches = drive(kernels, path, fn, iterations_of)
+    iters = iterations_of(res)
+    for name in PATH_KERNELS[path]:
+        check(launches[name] == shards * iters,
+              f"{path}: {name} launched {launches[name]} times, "
+              f"{shards} shards x {iters} iterations")
+    return res, launches
+
+
+def mesh_phase(gtt, kernels, dev, card, graph, wgraph, start, ug, x_t,
+               pr_res, wcc_labels, sssp_res, triangles):
+    """The multi-device paths at RMAT 22 on a mesh of MESH_SHARDS shards
+    that share this card: the three row-block engines built (their
+    stages timed) and held bit for bit to the single-device engines
+    (``spmv``, ``smin_int``, ``relax``); ``page_rank``, ``wcc``,
+    ``delta_stepping`` and ``global_triangle_count`` through ``use_mesh``
+    held to the earlier phases' results, with K1/K2 launched once a shard
+    an iteration; and both PageRank routes timed, ``page_rank_rowblock``
+    against ``page_rank_sharded`` (blocking and ring)."""
+    import torch
+
+    from graph_tpu_torch.algos.pagerank import _graph_engine
+    from graph_tpu_torch.algos.sssp import _weighted_engine
+    from graph_tpu_torch.algos.wcc import _sym_engine
+    from graph_tpu_torch.engine import engine as engine_mod
+    from graph_tpu_torch.parallel import pagerank as ppr
+    from graph_tpu_torch.parallel import sssp as pss
+    from graph_tpu_torch.parallel import wcc as pwcc
+    from graph_tpu_torch.parallel.mesh import Mesh, mesh_key, use_mesh
+
+    free_device()
+    mesh = Mesh([dev] * MESH_SHARDS)
+    P_, n = mesh.size, graph.node_count
+    out = {"shards": P_, "devices": [str(d) for d in mesh.devices]}
+
+    # 1. the row-block engines the routes build, built here (timed) and
+    # put into the routes' caches
+    builders = {"rowblock": (graph, ppr.shard_graph_plan),
+                "rowblock-sym": (graph, pwcc.shard_hook_graph_plan),
+                "rowblock-w": (wgraph, pss.shard_weighted_graph_plan)}
+    engines, builds = {}, {}
+    for kind, (g, build) in builders.items():
+        _sync()
+        t0 = time.perf_counter()
+        rbe = build(g, mesh)
+        _sync()
+        engines[kind] = engine_mod.engine_for(
+            g, (kind,) + mesh_key(mesh), lambda rbe=rbe: rbe)
+        builds[kind] = {
+            "build_s": time.perf_counter() - t0, **rbe.build_s,
+            "rows_per": rbe.rows_per, "H": rbe.halo_bytes // (4 * P_),
+            "halo_bytes": rbe.halo_bytes, "gather_bytes": rbe.gather_bytes,
+            "slots": [e.plan.m for e in rbe.engines]}
+    out["rowblock_builds"] = builds
+
+    # 2. one op of each engine against the single-device engine's
+    labels = torch.from_numpy(np.random.default_rng(2).permutation(n).astype(
+        np.int32)).to(dev)
+    checks = {}
+    for op, kind, x, single in (
+            ("spmv", "rowblock", x_t, _graph_engine(graph)),
+            ("smin_int", "rowblock-sym", labels, _sym_engine(graph)),
+            ("relax", "rowblock-w", sssp_res.distances,
+             _weighted_engine(wgraph))):
+        kernels.reset_launches()
+        y = getattr(engines[kind], op)(x)
+        _sync()
+        launched = dict(kernels.LAUNCHES)
+        checks[op] = mesh_check(op, y, getattr(single, op)(x), launched, P_)
+    out["rowblock_ops"] = checks
+    del y, labels
+
+    # 3. the algorithms through the default mesh
+    launches, runs = {}, {}
+    cfg = gtt.PageRankConfig(max_iterations=ITERS, tolerance=0.0)
+    with use_mesh(mesh):
+        res, launches["pagerank"] = drive_mesh(
+            kernels, "mesh_pagerank", lambda: gtt.page_rank(graph, cfg),
+            lambda r: r.ran_iterations, P_)
+        runs["pagerank"], res = timed_runs(lambda: gtt.page_rank(graph, cfg))
+        check(res.ran_iterations == pr_res.ran_iterations,
+              f"mesh: PageRank ran {res.ran_iterations} iterations, the "
+              f"pagerank phase {pr_res.ran_iterations}")
+        err = float((res.scores - pr_res.scores).abs().max())
+        check(err <= 1e-6, f"mesh: PageRank scores {err} from the pagerank "
+              "phase's")
+        out["pagerank"] = {"iterations": res.ran_iterations,
+                           "error": res.error, "max_abs_diff": err,
+                           "bits_differing": bits_diff(res.scores,
+                                                       pr_res.scores)}
+        res, launches["wcc"] = drive_mesh(
+            kernels, "mesh_wcc", lambda: gtt.wcc(graph),
+            lambda r: r.ran_iterations, P_)
+        runs["wcc"], res = timed_runs(lambda: gtt.wcc(graph))
+        check(torch_equal(res.components, wcc_labels),
+              "mesh: WCC labels differ from the wcc phase's")
+        out["wcc"] = {"rounds": res.ran_iterations}
+        scfg = gtt.DeltaSteppingConfig(start, 3.0)
+        res, launches["sssp"] = drive_mesh(
+            kernels, "mesh_sssp", lambda: gtt.delta_stepping(wgraph, scfg),
+            lambda r: r.ran_iterations, P_)
+        runs["sssp"], res = timed_runs(
+            lambda: gtt.delta_stepping(wgraph, scfg))
+        check(torch_equal(res.distances, sssp_res.distances),
+              "mesh: SSSP distances differ from the sssp phase's")
+        out["sssp"] = {"rounds": res.ran_iterations, "start_node": start}
+        _sync()
+        t0 = time.perf_counter()
+        tc = gtt.global_triangle_count(ug)
+        runs["triangles"] = [time.perf_counter() - t0]
+        check(tc.triangles == triangles,
+              f"mesh: {tc.triangles} triangles, the triangles phase "
+              f"{triangles}")
+        out["triangles"] = {"triangles": tc.triangles, **tc.phases}
+    out["run_s"] = runs
+    out["launches"] = launches
+    rbe = engines["rowblock"]
+    for kind in builders:  # the routes' caches: free the engines
+        g = builders[kind][0]
+        engine_mod._GRAPH_ENGINES.pop((id(g), (kind,) + mesh_key(mesh)))
+    del engines, res, tc
+    free_device()
+
+    # 4. both PageRank routes, timed: the row-block engine against the
+    # segment-op shards, blocking and ring
+    _sync()
+    t0 = time.perf_counter()
+    sg = ppr.shard_graph(graph, mesh)
+    _sync()
+    routes = {"shard_graph_s": time.perf_counter() - t0,
+              "shard_graph_H": sg.halo_bytes // (4 * P_),
+              "shard_graph_halo_bytes": sg.halo_bytes,
+              "shard_graph_gather_bytes": sg.gather_bytes}
+    found = {}
+    for name, fn in (
+            ("rowblock", lambda: ppr.page_rank_rowblock(rbe, cfg)),
+            ("sharded_blocking",
+             lambda: ppr.page_rank_sharded(sg, mesh, cfg, ring=False)),
+            ("sharded_ring",
+             lambda: ppr.page_rank_sharded(sg, mesh, cfg, ring=True))):
+        t, r = timed_runs(fn)
+        check(r.ran_iterations == pr_res.ran_iterations,
+              f"mesh: {name} ran {r.ran_iterations} iterations")
+        err = float((r.scores - pr_res.scores).abs().max())
+        check(err <= 1e-6, f"mesh: {name} scores {err} from the pagerank "
+              "phase's")
+        found[name] = r.scores
+        routes[name] = {"run_s": t, "best_s": min(t),
+                        "per_iteration_ms": min(t) / ITERS * 1e3,
+                        "max_abs_diff": err}
+    check(bits_diff(found["sharded_ring"], found["sharded_blocking"]) == 0,
+          "mesh: the ring's scores differ from the blocking exchange's")
+    out["pagerank_routes"] = routes
+    del sg, rbe, found
+    free_device()
+    emit({"phase": "mesh", "card": card, "scale": SCALE, **out})
+    return launches
 
 
 def free_device():
@@ -2531,7 +2722,11 @@ def run(rmat):
     api = api_server_phase(k, card, n, m, cfg, res, wcc_labels, wcc_rounds)
 
     # 7. triangle count; the segment-op engines; the out-of-core engine
-    triangles_phase(gtt, dev, src, dst, n)
+    triangles, ug = triangles_phase(gtt, dev, src, dst, n)
+    # the multi-device paths on a mesh of shards sharing the card
+    mesh_launches = mesh_phase(gtt, k, dev, card, graph, wgraph, start, ug,
+                               x_t, res, wcc_labels, sssp_res, triangles)
+    del ug
     _, eng_launches = engines_phase(gtt, k, dev, graph, wgraph, start, res,
                                     wcc_labels, sssp_res)
     del wgraph
@@ -2549,13 +2744,16 @@ def run(rmat):
                      "builder": bld["pagerank_launches"],
                      **api["pagerank"],
                      "engines (log_progress)": eng_launches["pagerank_logged"],
-                     "ooc (page_rank_ooc)": ooc_launches["pagerank"]},
+                     "ooc (page_rank_ooc)": ooc_launches["pagerank"],
+                     "mesh (page_rank_rowblock)": mesh_launches["pagerank"]},
         "wcc": {"wcc": wcc_launches, "builder": bld["wcc_launches"],
                 **api["wcc"],
-                "ooc (wcc_ooc)": ooc_launches["wcc"]},
+                "ooc (wcc_ooc)": ooc_launches["wcc"],
+                "mesh (wcc_rowblock)": mesh_launches["wcc"]},
         "sssp": {"sssp": sssp_launches,
                  "engines (grid, plan)": eng_launches["sssp_grid_plan"],
-                 "ooc (sssp_ooc)": ooc_launches["sssp"]}}
+                 "ooc (sssp_ooc)": ooc_launches["sssp"],
+                 "mesh (sssp_rowblock)": mesh_launches["sssp"]}}
     pr_launches = launches_of(*by_path["pagerank"].values())
     wcc_launches = launches_of(*by_path["wcc"].values())
     sssp_launches = launches_of(*by_path["sssp"].values())

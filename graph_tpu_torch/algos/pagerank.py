@@ -25,6 +25,11 @@ max_iterations and err >= tolerance``; with ``tolerance <= 0`` the
 residual cannot stop it, so the host reads it once at the end instead
 of once per iteration.
 ``log_progress=True`` reads and logs it every iteration, on any engine.
+
+Under a default mesh of more than one shard
+(:func:`graph_tpu_torch.parallel.use_mesh`) ``"auto"`` runs the sharded
+paths of :mod:`graph_tpu_torch.parallel.pagerank` instead; a pinned
+engine keeps the single-device path.
 """
 
 from __future__ import annotations
@@ -100,8 +105,59 @@ def page_rank(graph: DirectedCsrGraph,
     config = config or PageRankConfig()
     if config.engine not in ENGINES:
         raise ValueError(f"unknown PageRank engine {config.engine!r}")
+    mesh = _default_mesh()
+    if mesh is not None and config.engine != "auto":
+        # an explicit engine pin wins over the installed default mesh
+        # (the sharded paths have no "plan"/"cumsum"/"scatter" engines)
+        logger.info("page_rank: explicit engine=%r pins the single-device "
+                    "path; default mesh ignored", config.engine)
+        mesh = None
+    if mesh is not None:
+        if config.log_progress:
+            logger.info("page_rank: log_progress is not supported on the "
+                        "meshed path; running without per-iteration logs")
+        return _page_rank_meshed(graph, config, mesh)
     engine = "plan" if config.engine == "auto" else config.engine
     return _run(graph, config, engine, config.log_progress)
+
+
+def _default_mesh():
+    """The mesh installed with ``graph_tpu_torch.parallel.use_mesh``, if
+    it has more than one shard."""
+    from graph_tpu_torch.parallel.mesh import get_default_mesh
+
+    mesh = get_default_mesh()
+    if mesh is not None and mesh.size > 1:
+        return mesh
+    return None
+
+
+def _rowblock_route(graph, mesh) -> bool:
+    """Whether a meshed algorithm takes the row-block EdgeEngine (K1 and
+    K2 on every shard) rather than the segment-op shards: from 2**21
+    edges on a mesh of cards, ``graph_tpu``'s rule with its TPU test
+    read as a CUDA one.  CPU meshes take the segment-op shards, as
+    ``graph_tpu``'s CPU tests do."""
+    return graph.edge_count >= (1 << 21) and mesh.devices[0].type == "cuda"
+
+
+def _page_rank_meshed(graph, config, mesh) -> PageRankResult:
+    """Route through the row-block sharded paths, each shard's arrays
+    cached per (graph, mesh)."""
+    from graph_tpu_torch.parallel.mesh import mesh_key
+
+    if _rowblock_route(graph, mesh):
+        from graph_tpu_torch.parallel.pagerank import (
+            page_rank_rowblock, shard_graph_plan)
+
+        rbe = engine_for(graph, ("rowblock",) + mesh_key(mesh),
+                         lambda: shard_graph_plan(graph, mesh))
+        return page_rank_rowblock(rbe, config)
+    from graph_tpu_torch.parallel.pagerank import page_rank_sharded, shard_graph
+
+    sg = engine_for(graph, ("sharded-pull",) + mesh_key(mesh),
+                    lambda: shard_graph(graph, mesh))
+    return page_rank_sharded(sg, mesh, config)
 
 
 def _inv_outdeg(outdeg: torch.Tensor) -> torch.Tensor:
@@ -109,6 +165,22 @@ def _inv_outdeg(outdeg: torch.Tensor) -> torch.Tensor:
     never gathered; the reference divides by zero, page_rank.rs:75-79)."""
     outdeg = outdeg.to(torch.float32)
     return torch.where(outdeg > 0, 1.0 / outdeg.clamp(min=1.0), 0.0)
+
+
+def _scalars(n: int, damping_factor: float) -> Tuple[float, float, float]:
+    """(init, base, d): the Jacobi loop's f32 scalars as XLA compiles
+    graph_tpu's, where a division by the constant n becomes a product
+    with its f32 reciprocal: init = 1/n, base = (1-d)·init."""
+    damping = np.float32(damping_factor)
+    init = np.float32(1.0) / np.float32(n)
+    return float(init), float((np.float32(1.0) - damping) * init), \
+        float(damping)
+
+
+def _update(y: torch.Tensor, base: float, d: float) -> torch.Tensor:
+    """``base + d * y`` with one rounding (a fused multiply-add), as XLA
+    compiles graph_tpu's update."""
+    return torch.full_like(y, base).add_(y, alpha=d)
 
 
 def _jacobi(sums: Callable[[torch.Tensor], torch.Tensor],
@@ -120,13 +192,7 @@ def _jacobi(sums: Callable[[torch.Tensor], torch.Tensor],
     is read every iteration when it can stop the loop or is logged, else
     once at the end."""
     n = inv_outdeg.numel()
-    # f32 scalars as XLA compiles graph_tpu's: a division by the constant
-    # n becomes a product with its f32 reciprocal
-    damping = np.float32(damping_factor)
-    init = np.float32(1.0) / np.float32(n)
-    base = float((np.float32(1.0) - damping) * init)
-    init = float(init)
-    d = float(damping)
+    init, base, d = _scalars(n, damping_factor)
     tolerance = float(np.float32(tolerance))
     read_each = tolerance > 0 or log
     scores = torch.full((n,), init, dtype=torch.float32,
@@ -136,10 +202,7 @@ def _jacobi(sums: Callable[[torch.Tensor], torch.Tensor],
     while it < max_iterations and err >= tolerance:
         t0 = time.perf_counter()
         with annotate(ITERATION):
-            # base + d * y with one rounding (a fused multiply-add), as
-            # XLA compiles graph_tpu's update
-            new_scores = torch.full_like(out_scores, base).add_(
-                sums(out_scores), alpha=d)
+            new_scores = _update(sums(out_scores), base, d)
             err_t = torch.sum(torch.abs(new_scores - scores))
             scores, out_scores = new_scores, new_scores * inv_outdeg
             it += 1

@@ -33,6 +33,12 @@ Layout semantics (the reference's):
   computed as G(v) x F(v) occurrence cross products joined against the
   distinct adjacency keys.
 * UNSORTED: rejected (the reference's merge assumes sorted lists).
+
+Under a default mesh of more than one shard
+(:func:`graph_tpu_torch.parallel.use_mesh`) the DEDUPLICATED count
+joins on every shard (:mod:`graph_tpu_torch.parallel.tc`), unless a
+``device`` is given; the SORTED multiset count stays on one device, as
+in ``graph_tpu``.
 """
 
 from __future__ import annotations
@@ -44,6 +50,7 @@ from typing import Optional
 import numpy as np
 import torch
 
+from graph_tpu_torch.algos.pagerank import _default_mesh
 from graph_tpu_torch.device import run_device
 from graph_tpu_torch.graph.csr import CsrLayout, UndirectedCsrGraph
 from graph_tpu_torch.native.host_csr import tc_orient_native
@@ -291,6 +298,11 @@ def global_triangle_count(graph: UndirectedCsrGraph, *,
             "global_triangle_count requires CsrLayout.SORTED or "
             "CsrLayout.DEDUPLICATED (the reference's merge intersection "
             "assumes sorted neighbor lists)")
+    mesh = _default_mesh()
+    if mesh is not None and device is None:
+        from graph_tpu_torch.parallel.tc import triangle_count_sharded
+
+        return triangle_count_sharded(graph, mesh)
     device = run_device(graph, device)
     start = time.perf_counter()
     phases = {}

@@ -1,13 +1,16 @@
-"""Graph500 RMAT edge lists on the host (numpy only).
+"""Seeded edge lists on the host (numpy only).
 
 ``host_rmat`` is a bit-for-bit copy of the JAX package's benchmark
-generator (``bench.py:host_rmat``), so that both packages see the same
-edge lists from the same seed.
+generator (``bench.py:host_rmat``), and ``uniform_edge_list`` of
+``graph_tpu.generate``'s, so that both packages see the same edge lists
+from the same seed.
 """
 
 from __future__ import annotations
 
 import os
+
+from typing import Tuple
 
 import numpy as np
 
@@ -51,3 +54,24 @@ def cached_rmat(scale, cache_dir, edge_factor=16, seed=42):
     np.savez(tmp, src=src, dst=dst)
     os.replace(tmp, path)
     return src, dst
+
+
+def uniform_edge_list(
+    node_count: int, edge_count: int, seed: int = 42
+) -> Tuple[np.ndarray, np.ndarray]:
+    """Seeded uniform random edge list.
+
+    Reference analog: ``uniform_edge_list``
+    (benches/common/mod.rs:88-108) with SMALL/MEDIUM/LARGE =
+    1k/10k/100k nodes × 10 average degree.
+    """
+    rng = np.random.default_rng(seed)
+    src = rng.integers(0, node_count, edge_count, dtype=np.int64)
+    dst = rng.integers(0, node_count, edge_count, dtype=np.int64)
+    return src, dst
+
+
+# Reference bench sizes (benches/common/mod.rs:71-86).
+SMALL = (1_000, 10_000)
+MEDIUM = (10_000, 100_000)
+LARGE = (100_000, 1_000_000)
