@@ -60,6 +60,15 @@ m = 67,108,864, seed 42):
   path's result, and SSSP ``plan``/``frontier``/``xla`` on bench.py's
   1024 x 1024 grid; every engine's seconds and host reads, there and on
   RMAT 12 to 18, from which the ``auto`` rules are decided;
+* the device loops: each single-device driver's loop runs on the card as
+  one CUDA graph with a conditional WHILE node
+  (``graph_tpu_torch.engine.loop``), held to its host loop on the card
+  (``host_while``): PageRank plan at the default tolerance and at 0, WCC
+  plan, SSSP plan on RMAT 22 and on the grid, delta-stepping
+  (``frontier``) on the grid; equal bits and iterations, one host read,
+  K1 and K2 once an iteration, ms a run both ways (best of 3), capture
+  and instantiation seconds apart; ``max_iterations=0`` returns the
+  initial scores;
 * the out-of-core engine with 8 slabs: ``spmv``, ``smin_int`` and
   ``relax`` bit-exact against resident engines, the three drivers
   against the phases above, ms and bytes per call beside a plain pinned
@@ -87,8 +96,9 @@ RMAT is generated, then the two on a stand-in for the TPU plan's routed
 sections of the scale-22 plan (routed on the host by a thread of its own
 while the other paths run); each variant exact against its plain
 version, ``full`` equal to the port's K2 on every destination.  One
-``graph_tpu_torch.profile`` trace of the PageRank run gives the device's
-busy share and the kernels that took the most time.
+``graph_tpu_torch.profile`` trace of the PageRank run, as the device loop
+and as its host loop, gives the device's busy share and the kernels that
+took the most time.
 It prints one JSON line per phase; the line before the last lists the
 kernels, with each design's facts (K2's tile, K1's window and the share
 of slots it serves, a probe's window or depth), and the last line is
@@ -97,6 +107,7 @@ Any failed check exits non-zero without that line, as does a machine
 without a CUDA device.
 """
 
+import contextlib
 import dataclasses
 import gc
 import json
@@ -164,6 +175,12 @@ PATH_KERNELS = {"pagerank": ("k1_gather", "k2_reduce"),
                 "mesh_pagerank": ("k1_gather", "k2_reduce"),
                 "mesh_wcc": ("k1_gather", "k2_reduce_min"),
                 "mesh_sssp": ("k1_gather_weighted", "k2_reduce_min")}
+#: The paths whose loop runs on the card as a conditional CUDA graph
+#: (``graph_tpu_torch.engine.loop``); logged PageRank, out of core and
+#: the mesh keep host loops.
+LOOP_PATHS = {"pagerank", "wcc", "sssp", "builder_pagerank", "builder_wcc",
+              "api_pagerank", "api_wcc", "server_pagerank",
+              "flight_pagerank", "cli_pagerank", "engines_sssp_grid"}
 WIKI = np.array([(1, 2), (2, 1), (4, 0), (4, 1), (5, 4), (5, 1), (5, 6),
                  (6, 1), (6, 5), (7, 1), (7, 5), (8, 1), (8, 5), (9, 1),
                  (9, 5), (10, 1), (10, 5), (11, 5), (12, 5)])
@@ -472,16 +489,23 @@ def gate(eng, src, dst, n, dev):
 
 def drive(kernels, path, fn, iterations_of):
     """Run one path with the launch counts set to 0 just before and read
-    just after; each of its kernels must launch once per iteration."""
+    just after; each of its kernels must launch once per iteration, and a
+    path that runs as a device loop must launch its graph."""
+    from graph_tpu_torch.engine import loop
+
     kernels.reset_launches()
+    loop.reset_launches()
     res = fn()
     _sync()
-    launches = dict(kernels.LAUNCHES)
+    launches = {**kernels.LAUNCHES, **loop.LAUNCHES}
     iters = iterations_of(res)
     for name in PATH_KERNELS[path]:
         check(launches[name] >= iters >= 1,
               f"{path}: {name} launched {launches[name]} times in "
               f"{iters} iterations")
+    if path in LOOP_PATHS:
+        check(launches["device_loop"] >= 1,
+              f"{path}: the device loop's graph was not launched")
     return res, launches
 
 
@@ -1277,7 +1301,7 @@ def engines_phase(gtt, kernels, dev, graph, wgraph, start, pr_res,
         side=GRID_SIDE, n=gn, m=int(gsrc.size), delta=2.0,
         max_distance=float(dist.max()),
         corner_distance=float(dist[gn - 1]))
-    del gg, res, plan_res, dist
+    del res, plan_res, dist
 
     # smaller RMATs (seed 3), down to where launches, not bytes, set the
     # time: where each algorithm's engines cross over
@@ -1305,7 +1329,7 @@ def engines_phase(gtt, kernels, dev, graph, wgraph, start, pr_res,
                    key=lambda k: rows[k]["best_s"])
         for table, rows in out.items()}
     emit({"phase": "engines", "scale": SCALE, **out})
-    return out, launches
+    return out, launches, gg
 
 
 def frontier_runs(gtt, g, start, delta, reps=3):
@@ -1324,6 +1348,162 @@ def frontier_runs(gtt, g, start, delta, reps=3):
         check("2^31" in str(exc), f"frontier: unexpected refusal {exc}")
         return {"refused": str(exc), "max_out_degree": dmax}
     raise SmokeFailure("frontier ran past its adjacency limit")
+
+
+@contextlib.contextmanager
+def host_loops():
+    """Every single-device driver's ``device_while`` replaced by
+    ``host_while``, its plain version (the Python loop that reads the
+    condition back every iteration), while the block runs."""
+    import importlib
+
+    from graph_tpu_torch.engine.loop import host_while
+
+    mods = [importlib.import_module(f"graph_tpu_torch.algos.{name}")
+            for name in ("pagerank", "wcc", "sssp")]
+    saved = [mod.device_while for mod in mods]
+    for mod in mods:
+        mod.device_while = lambda body, state, cond, **_: host_while(
+            body, state, cond)
+    try:
+        yield
+    finally:
+        for mod, fn in zip(mods, saved):
+            mod.device_while = fn
+
+
+def loop_path(kernels, name, fn, cache, key, path_kernels):
+    """One driver's device loop against its host loop on the card: capture
+    and instantiation seconds apart (the cached loop dropped first), then
+    3 runs each way (their launches, host reads, bits and iterations
+    held, their seconds kept)."""
+    import torch
+
+    from graph_tpu_torch.engine import loop
+
+    cache.pop(key, None)
+    _sync()
+    t0 = time.perf_counter()
+    fn()  # captures, instantiates and runs
+    _sync()
+    first_s = time.perf_counter() - t0
+    captured = cache[key]
+    kernels.reset_launches()
+    loop.reset_launches()
+    runs, res = timed_runs(fn)
+    launches = {**kernels.LAUNCHES, **loop.LAUNCHES}
+    graph_ms = captured.graph_ms()  # the card's time of the last run
+    iters, reps = res.ran_iterations, len(runs)
+    for kname in path_kernels:
+        check(launches[kname] == reps * iters,
+              f"device loop {name}: {kname} launched {launches[kname]} "
+              f"times in {reps} runs of {iters} iterations")
+    check(launches["device_loop"] == reps and res.host_reads == 1,
+          f"device loop {name}: {launches['device_loop']} graph launches "
+          f"in {reps} runs, {res.host_reads} host reads")
+    with host_loops():
+        host_runs, want = timed_runs(fn)
+    field = next(f for f in ("scores", "distances", "components")
+                 if hasattr(res, f))
+    got_t, want_t = getattr(res, field), getattr(want, field)
+    err = bits_diff(got_t, want_t)
+    check(got_t.dtype == want_t.dtype and err == 0
+          and torch.equal(got_t, want_t),
+          f"device loop {name}: {field} differ from the host loop's "
+          f"(max {err})")
+    check(res.ran_iterations == want.ran_iterations,
+          f"device loop {name}: {res.ran_iterations} iterations, the host "
+          f"loop {want.ran_iterations}")
+    if field == "scores":
+        check(res.error == want.error, f"device loop {name}: error "
+              f"{res.error}, the host loop's {want.error}")
+    return {"iterations": iters, "host_reads": res.host_reads,
+            "host_loop_reads": want.host_reads, "max_abs_err": err,
+            "launches_a_run": {k: v // reps for k, v in launches.items()
+                               if v},
+            "device_run_s": runs, "host_run_s": host_runs,
+            "device_ms": min(runs) * 1e3, "host_ms": min(host_runs) * 1e3,
+            "graph_ms": graph_ms, "graph_share": graph_ms / (runs[-1] * 1e3),
+            "capture_s": captured.capture_s,
+            "instantiate_s": captured.instantiate_s,
+            "first_run_s": first_s, "pieces": len(captured.graphs)}
+
+
+def device_loop_phase(gtt, kernels, card, graph, wgraph, start, grid):
+    """Each single-device driver's loop as one conditional CUDA graph
+    (``graph_tpu_torch.engine.loop.device_while``) against its host loop,
+    on the RMAT 22 graphs and bench.py's grid: PageRank plan at the
+    default tolerance and at 0, WCC plan, SSSP plan on both graphs and
+    delta-stepping (``frontier``) on the grid.  Returns the kernel row of
+    the device loop, at the PageRank path's 20 iterations."""
+    import torch
+
+    from graph_tpu_torch.algos.pagerank import _graph_engine
+    from graph_tpu_torch.algos.sssp import _FRONTIER_CAP, _weighted_engine
+    from graph_tpu_torch.algos.wcc import _sym_engine
+    from graph_tpu_torch.engine.engine import engine_for
+
+    eng = _graph_engine(graph)
+    pr_key = ("page_rank", "plan", float(np.float32(0.85)))
+    pr_tol0 = gtt.PageRankConfig(engine="plan", max_iterations=ITERS,
+                                 tolerance=0.0)
+    paths = {
+        "pagerank_tol_1e-4": (lambda: gtt.page_rank(
+            graph, gtt.PageRankConfig(engine="plan")), eng.loops, pr_key,
+            PATH_KERNELS["pagerank"]),
+        "pagerank_tol_0": (lambda: gtt.page_rank(graph, pr_tol0),
+                           eng.loops, pr_key, PATH_KERNELS["pagerank"]),
+        "wcc_plan": (lambda: gtt.wcc(graph), _sym_engine(graph).loops,
+                     "wcc", PATH_KERNELS["wcc"]),
+        "sssp_plan_rmat": (lambda: gtt.delta_stepping(
+            wgraph, gtt.DeltaSteppingConfig(start, 3.0)),
+            _weighted_engine(wgraph).loops, "sssp", PATH_KERNELS["sssp"]),
+        "sssp_plan_grid": (lambda: gtt.delta_stepping(
+            grid, gtt.DeltaSteppingConfig(0, 2.0)),
+            _weighted_engine(grid).loops, "sssp", PATH_KERNELS["sssp"]),
+        "delta_stepping_frontier_grid": (lambda: gtt.delta_stepping(
+            grid, gtt.DeltaSteppingConfig(0, 2.0, engine="frontier")),
+            engine_for(grid, "loops", dict),
+            ("frontier", 2.0, _FRONTIER_CAP), ()),
+    }
+    out = {name: loop_path(kernels, name, *spec)
+           for name, spec in paths.items()}
+    # max_iterations=0: no body runs; the initial scores come back
+    zero = gtt.page_rank(graph, gtt.PageRankConfig(engine="plan",
+                                                   max_iterations=0))
+    n = graph.node_count
+    init = float(np.float32(1.0) / np.float32(n))
+    check(zero.ran_iterations == 0 and zero.host_reads == 1
+          and torch.equal(zero.scores, torch.full_like(zero.scores, init)),
+          f"device loop, max_iterations=0: {zero.ran_iterations} "
+          "iterations, scores not the initial 1/n")
+    out["pagerank_max_iterations_0"] = {
+        "iterations": zero.ran_iterations, "host_reads": zero.host_reads,
+        "error": zero.error}
+    emit({"phase": "device_loop", "card": card, **out})
+    # the device loop's kernel row: one PageRank run at the path's 20
+    # iterations; its bound, the bytes each iteration must move (the
+    # plan's slot sources and offsets once, and five n-vectors: the
+    # gathered and old scores and the 1/outdeg in, new scores and
+    # out-scores out)
+    pr = out["pagerank_tol_0"]
+    m = eng.plan.m
+    nbytes = ITERS * (4 * m + 8 * (n + 1) + 20 * n)
+    bound, by = bound_of(nbytes, 0)
+    run = lambda: gtt.page_rank(graph, pr_tol0)  # noqa: E731
+    with host_loops():
+        plain_ms = time_ms(run, reps=3)
+    return {"name": "device_loop", "path": "pagerank (plan, 20 iterations)",
+            "route": "cuda", "source": "graph_tpu_torch/csrc/device_loop.cu",
+            "replaces": "graph_tpu/algos/pagerank.py:430 (jax.lax.while_loop"
+                        "'s device loop; no pl.pallas_call)",
+            "max_abs_err": pr["max_abs_err"], "ms": time_ms(run, reps=3),
+            "plain_ms": plain_ms, "bound_ms": bound, "bound_by": by,
+            "library_ms": None,
+            "library": "none: no single PyTorch call runs a loop",
+            "bytes": nbytes, "shapes": f"n={n}, m={m}, {ITERS} iterations",
+            "design": "a WHILE node over the captured body; one-thread "
+                      "condition kernels"}
 
 
 def copy_yardstick_ms(nbytes, dev):
@@ -2500,40 +2680,75 @@ def library_call(label, v, sides, layout, stand_in, z):
     return ("none: no single PyTorch call computes it", None)
 
 
-def profile_phase(gtt, graph, cfg, card):
-    """One ``graph_tpu_torch.profile.trace`` of the 20-iteration PageRank
-    on the scale-22 plan (each iteration annotated by the port): the
-    trace's size, the kernels that took the most device time, and the
-    device's busy share over the run and over the whole trace."""
+def profile_phase(gtt, kernels, graph, cfg, card):
+    """``graph_tpu_torch.profile`` traces of the 20-iteration PageRank on
+    the scale-22 plan, once as the device loop and once as its host loop
+    (``host_loops``), each with K1 and K2 launched once an iteration by
+    the wrappers' counts.  The host loop annotates each iteration, and
+    its trace must hold 20 annotations; the device loop is one graph
+    launch.  CUPTI does not report every kernel of either run (19 K1
+    events of 20 at this size), so the kernel events in each run are
+    recorded, not held to the launches.  For each: the trace's size, the
+    kernels that took the most device time, and the device's busy share
+    over the run and the trace (a lower bound: the kernels CUPTI missed
+    count as idle)."""
     from graph_tpu_torch import profile
     from graph_tpu_torch.algos.pagerank import ITERATION
+    from graph_tpu_torch.engine import loop
 
-    gtt.page_rank(graph, cfg)  # warm: the engine is built and cached
-    with profile.trace(os.path.join(ROOT, ".cache", "profile")) as log_dir:
-        with profile.annotate("pagerank_run"):
-            res = gtt.page_rank(graph, cfg)
-    path = profile.newest_trace(log_dir)
-    with open(path) as f:
-        iterations = sum(e.get("name") == ITERATION
-                         and e.get("cat") == "user_annotation"
-                         for e in json.load(f)["traceEvents"])
-    check(iterations == res.ran_iterations == ITERS,
-          f"profile: {iterations} annotated iterations")
-    run = profile.device_busy(path, region="pagerank_run")
-    whole = profile.device_busy(path)
-    check(run["busy_us"] > 0, "profile: no device activity in the trace")
-    top = list(run["device_us_by_name"].items())[:8]
-    emit({"phase": "profile", "card": card, "trace_bytes":
-          os.path.getsize(path), "iterations": res.ran_iterations,
-          "run_s": res.micros / 1e6, "run_window_us": run["window_us"],
-          "run_busy_us": run["busy_us"],
-          "run_busy_share": run["busy_share"],
-          "trace_window_us": whole["window_us"],
-          "trace_busy_share": whole["busy_share"],
-          "top_device_us": dict(top),
-          "port_kernels_seen": sorted(
-              name for name in run["device_us_by_name"]
-              if "k1_" in name or "k2_" in name)})
+    gtt.page_rank(graph, cfg)  # warm: the engine and its loop are cached
+    out = {}
+    for name in ("device_loop", "host_loop"):
+        kernels.reset_launches()
+        loop.reset_launches()
+        with host_loops() if name == "host_loop" else \
+                contextlib.nullcontext():
+            with profile.trace(os.path.join(ROOT, ".cache", "profile")) \
+                    as log_dir:
+                with profile.annotate("pagerank_run"):
+                    res = gtt.page_rank(graph, cfg)
+        _sync()
+        launches = {**kernels.LAUNCHES, **loop.LAUNCHES}
+        path = profile.newest_trace(log_dir)
+        with open(path) as f:
+            annotated = sum(e.get("name") == ITERATION
+                            and e.get("cat") == "user_annotation"
+                            for e in json.load(f)["traceEvents"])
+        run = profile.device_busy(path, region="pagerank_run")
+        whole = profile.device_busy(path)
+        counted, in_trace = ({kernel: sum(
+            c for k, c in busy["device_calls_by_name"].items() if kernel in k)
+            for kernel in ("k1_gather_kernel", "k2_tile_kernel")}
+            for busy in (run, whole))
+        check(res.ran_iterations == ITERS and all(
+            launches[k] == ITERS for k in PATH_KERNELS["pagerank"]),
+            f"profile ({name}): {launches} launches in "
+            f"{res.ran_iterations} iterations")
+        if name == "host_loop":
+            check(annotated == ITERS,
+                  f"profile (host loop): {annotated} annotated iterations")
+        else:
+            check(launches["device_loop"] == 1 and res.host_reads == 1,
+                  f"profile (device loop): {launches['device_loop']} graph"
+                  f" launches, {res.host_reads} host reads")
+        check(run["busy_us"] > 0, "profile: no device activity in the trace")
+        out[name] = {
+            "trace_bytes": os.path.getsize(path),
+            "iterations": res.ran_iterations, "host_reads": res.host_reads,
+            "launches": {k: v for k, v in launches.items() if v},
+            "annotated_iterations": annotated, "kernel_events": counted,
+            "kernel_events_in_trace": in_trace,
+            "run_s": res.micros / 1e6, "run_window_us": run["window_us"],
+            "run_busy_us": run["busy_us"],
+            "run_busy_share": run["busy_share"],
+            "trace_window_us": whole["window_us"],
+            "trace_busy_share": whole["busy_share"],
+            "top_device_us": dict(list(
+                run["device_us_by_name"].items())[:8]),
+            "port_kernels_seen": sorted(
+                k for k in run["device_us_by_name"]
+                if "k1_" in k or "k2_" in k or "loop_cond" in k)}
+    emit({"phase": "profile", "card": card, **out})
 
 
 class RmatProcess:
@@ -2727,9 +2942,11 @@ def run(rmat):
     mesh_launches = mesh_phase(gtt, k, dev, card, graph, wgraph, start, ug,
                                x_t, res, wcc_labels, sssp_res, triangles)
     del ug
-    _, eng_launches = engines_phase(gtt, k, dev, graph, wgraph, start, res,
-                                    wcc_labels, sssp_res)
-    del wgraph
+    _, eng_launches, grid = engines_phase(gtt, k, dev, graph, wgraph, start,
+                                          res, wcc_labels, sssp_res)
+    # each loop as a conditional CUDA graph against its host loop
+    loop_row = device_loop_phase(gtt, k, card, graph, wgraph, start, grid)
+    del wgraph, grid
     _, ooc_launches = ooc_phase(
         gtt, k, dev, errs, src, dst, sssp_weights(m), n, start, x_t.cpu(),
         sym, res, wcc_labels, wcc_rounds, sssp_res)
@@ -2862,6 +3079,12 @@ def run(rmat):
         t["launches_by_path"] = {
             path: runs[t["name"]]
             for path, runs in by_path[t["path"].split()[0]].items()}
+    # the device loop's graph: one launch a run of every path it drives
+    loop_row["launches_by_path"] = {
+        f"{group}: {path}": runs["device_loop"]
+        for group, paths in by_path.items() for path, runs in paths.items()}
+    loop_row["launches"] = sum(loop_row["launches_by_path"].values())
+    check(loop_row["launches"] > 0, "the device loop was never launched")
 
     # 9. the K1 gather probes' line (step 3), with K1's own rate at each
     # window beside them; the K2 stream probes, with K2's own rate beside
@@ -2890,7 +3113,7 @@ def run(rmat):
                            routing[0], sec128_in, st_by)
     del st_cases, st_layout, routing
     free_device()
-    profile_phase(gtt, graph, cfg, card)
+    profile_phase(gtt, k, graph, cfg, card)
 
     iter_ms = best / ITERS * 1e3
     emit({"phase": "kernel_detail",
@@ -2901,7 +3124,7 @@ def run(rmat):
                                                 + table[1]["ms"]) / iter_ms,
           "max_in_degree": int(torch.diff(plan.indptr).max())})
     print(card, flush=True)
-    emit({"kernels": table})
+    emit({"kernels": table + [loop_row]})
     emit({"ok": True, "device": {"platform": "gpu",
                                  "kind": torch.cuda.get_device_name(0),
                                  "count": torch.cuda.device_count()}})

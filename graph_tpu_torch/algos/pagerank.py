@@ -21,10 +21,14 @@ chip_smoke times; ``"scatter"`` is faster on small graphs but its f32
 sums are other numbers, so ``"auto"`` never picks it (PERF.md).
 
 The loop stops on the JAX ``while_loop``'s condition, ``it <
-max_iterations and err >= tolerance``; with ``tolerance <= 0`` the
-residual cannot stop it, so the host reads it once at the end instead
-of once per iteration.
-``log_progress=True`` reads and logs it every iteration, on any engine.
+max_iterations and err >= tolerance``.  On the card it runs on the
+device (:func:`graph_tpu_torch.engine.loop.device_while`: one CUDA graph
+with a conditional WHILE node, captured once per engine and damping
+factor), and the host reads the iteration count and the residual once,
+after the loop.  On the CPU it is a host loop that reads the residual
+every iteration; with ``tolerance <= 0`` the residual cannot stop it, so
+it reads it once at the end.  ``log_progress=True`` reads and logs it
+every iteration, in a host loop on any device.
 
 Under a default mesh of more than one shard
 (:func:`graph_tpu_torch.parallel.use_mesh`) ``"auto"`` runs the sharded
@@ -44,6 +48,7 @@ import torch
 
 from graph_tpu_torch.device import synchronize
 from graph_tpu_torch.engine.engine import EdgeEngine, engine_for
+from graph_tpu_torch.engine.loop import Residual, device_while
 from graph_tpu_torch.graph.csr import DirectedCsrGraph
 from graph_tpu_torch.ops.segment import (
     segment_sum_fixedpoint, segment_sum_sorted)
@@ -185,37 +190,67 @@ def _update(y: torch.Tensor, base: float, d: float) -> torch.Tensor:
 
 def _jacobi(sums: Callable[[torch.Tensor], torch.Tensor],
             inv_outdeg: torch.Tensor, max_iterations: int, tolerance: float,
-            damping_factor: float, log: bool = False
+            damping_factor: float, log: bool = False, *,
+            cache: Optional[dict] = None, key=None
             ) -> Tuple[torch.Tensor, int, float, int]:
     """The Jacobi loop every engine runs: ``sums(out_scores)`` is its
-    spmv.  Returns (scores, iterations, error, host reads); the residual
-    is read every iteration when it can stop the loop or is logged, else
-    once at the end."""
+    spmv.  Returns (scores, iterations, error, host reads).
+
+    ``graph_tpu``'s ``while_loop``
+    (:func:`~graph_tpu_torch.engine.loop.device_while`): on the card one
+    conditional CUDA graph, captured once per ``cache[key]``, and one
+    host read after the loop; on the CPU the
+    host loop, which reads the residual every iteration when it can stop
+    the loop, else once at the end.  ``log`` reads and logs it every
+    iteration, in a host loop on any device.
+    """
+    if log:
+        return _jacobi_logged(sums, inv_outdeg, max_iterations, tolerance,
+                              damping_factor)
+    n = inv_outdeg.numel()
+    init, base, d = _scalars(n, damping_factor)
+    scores = torch.full((n,), init, dtype=torch.float32,
+                        device=inv_outdeg.device)
+
+    def body(state):
+        # out-scores are the scores times 1/outdeg, taken at the top of
+        # the body: the same bits as graph_tpu's carried out_scores, and
+        # one vector fewer for the device loop to copy back each round
+        scores, _, inv = state
+        with annotate(ITERATION):
+            new_scores = _update(sums(scores * inv), base, d)
+            err = torch.sum(torch.abs(new_scores - scores))
+            return new_scores, err, inv
+
+    run = device_while(body, (scores, float("inf"), inv_outdeg),
+                       Residual(1, max_iterations, tolerance),
+                       cache=cache, key=key)
+    return run.state[0], run.iterations, float(run.value), run.host_reads
+
+
+def _jacobi_logged(sums, inv_outdeg: torch.Tensor, max_iterations: int,
+                   tolerance: float, damping_factor: float
+                   ) -> Tuple[torch.Tensor, int, float, int]:
+    """:func:`_jacobi` as a host loop that reads the residual and logs it
+    with the iteration's seconds, every iteration (``graph_tpu``'s
+    ``_page_rank_logged``)."""
     n = inv_outdeg.numel()
     init, base, d = _scalars(n, damping_factor)
     tolerance = float(np.float32(tolerance))
-    read_each = tolerance > 0 or log
     scores = torch.full((n,), init, dtype=torch.float32,
                         device=inv_outdeg.device)
     out_scores = scores * inv_outdeg
-    it, err, err_t, reads = 0, float("inf"), None, 0
+    it, err = 0, float("inf")
     while it < max_iterations and err >= tolerance:
         t0 = time.perf_counter()
         with annotate(ITERATION):
             new_scores = _update(sums(out_scores), base, d)
-            err_t = torch.sum(torch.abs(new_scores - scores))
+            err = torch.sum(torch.abs(new_scores - scores)).item()
             scores, out_scores = new_scores, new_scores * inv_outdeg
             it += 1
-            if read_each:
-                err = err_t.item()  # host read: the residual decides the loop
-                reads += 1
-        if log:
-            logger.info("PageRank iteration %d finished with an error of "
-                        "%.3e in %.3fs", it, err, time.perf_counter() - t0)
-    if err_t is not None and not read_each:
-        err = err_t.item()
-        reads += 1
-    return scores, it, err, reads
+        logger.info("PageRank iteration %d finished with an error of "
+                    "%.3e in %.3fs", it, err, time.perf_counter() - t0)
+    return scores, it, err, it
 
 
 def _csr_sums(in_sources, in_targets, in_offsets, engine: str):
@@ -319,15 +354,19 @@ def _run(graph: DirectedCsrGraph, config: PageRankConfig, engine: str,
         eng = _graph_engine(graph)
         sums = lambda x: eng.spmv(x, internal=True)  # noqa: E731
         to_internal, to_public = eng.to_internal, eng.to_public
+        loops = eng.loops
     else:
         sums = _csr_sums(graph.csr_in.sources, graph.csr_in.targets,
                          graph.csr_in.offsets, engine)
         to_internal = to_public = lambda v: v  # noqa: E731
+        loops = engine_for(graph, "loops", dict)
     start = time.perf_counter()
+    # the captured loop bakes in the damping factor; limits are per run
     scores, it, err, reads = _jacobi(
         sums, to_internal(_inv_outdeg(graph.out_degrees())),
         int(config.max_iterations), config.tolerance, config.damping_factor,
-        log)
+        log, cache=loops,
+        key=("page_rank", engine, float(np.float32(config.damping_factor))))
     scores = to_public(scores)
     synchronize(scores.device)
     micros = int((time.perf_counter() - start) * 1e6)

@@ -7,20 +7,24 @@ Counterpart of ``graph_tpu.algos.sssp`` (reference analog:
   edge, ``dist <- min(dist, relax(dist))`` with ``relax`` the tropical
   edge-map-reduce ``min over s->d of dist[s] + w`` (K1 weighted gather
   with ``combine="add"`` + K2 ``min``), until nothing changes; rounds =
-  the weighted hop diameter.  One host read per round.
+  the weighted hop diameter.
 * ``"xla"``: delta-stepping with dense bucket masks over the in-CSR:
   the frontier is the pending nodes of the current bucket, relaxed by a
   gather and a segment-min over all edges.
 * ``"frontier"``: delta-stepping over a degree-padded adjacency matrix,
   relaxing only up to ``_FRONTIER_CAP`` compacted frontier nodes a step.
 
-The two delta-stepping engines' nested ``while_loop``s are host loops:
-one host read per settle step (is the bucket empty?) and one per bucket
-(the next bucket).  Every engine's distances are exact f32 path sums,
-the least fixpoint, so the engines agree bit for bit and match the
-reference golden ``[0, 4, 2, 9, 5, 20]`` (sssp.rs:283-313).  ``"auto"``
-runs the plan engine, the fastest on the card on the RMAT and on the
-grid (PERF.md); under a default mesh of more than one shard
+Every engine's loops are ``graph_tpu``'s ``while_loop``s
+(:func:`graph_tpu_torch.engine.loop.device_while`): on the card one CUDA
+graph with a conditional WHILE node (delta-stepping: a WHILE node over
+buckets whose body holds the settle WHILE node), captured once per graph
+and read once after the loop; on the CPU host loops, which read the
+changed flag each round, or whether the bucket is empty each settle step
+and the next bucket each bucket.  Every engine's distances are exact f32
+path sums, the least fixpoint, so the engines agree bit for bit and
+match the reference golden ``[0, 4, 2, 9, 5, 20]`` (sssp.rs:283-313).
+``"auto"`` runs the plan engine, the fastest on the card on the RMAT and
+on the grid (PERF.md); under a default mesh of more than one shard
 (:func:`graph_tpu_torch.parallel.use_mesh`) it runs the sharded
 Bellman-Ford of :mod:`graph_tpu_torch.parallel.sssp` instead.
 """
@@ -29,7 +33,7 @@ from __future__ import annotations
 
 import dataclasses
 import time
-from typing import Tuple
+from typing import Optional, Tuple
 
 import numpy as np
 import torch
@@ -38,6 +42,7 @@ from graph_tpu_torch.algos.pagerank import _default_mesh, _rowblock_route
 from graph_tpu_torch.device import synchronize
 from graph_tpu_torch.engine.engine import EdgeEngine, engine_for
 from graph_tpu_torch.engine.kernels import INF as _PLAN_INF
+from graph_tpu_torch.engine.loop import Flag, While, device_while
 from graph_tpu_torch.graph.csr import DirectedCsrGraph
 from graph_tpu_torch.ops.segment import segment_min_sorted
 
@@ -106,7 +111,7 @@ def delta_stepping(graph: DirectedCsrGraph,
         dist, steps, reads = _delta_stepping_device(
             graph.csr_in.sources, graph.csr_in.targets,
             graph.csr_in.values.to(torch.float32), s, config.delta,
-            graph.node_count)
+            graph.node_count, cache=engine_for(graph, "loops", dict))
         synchronize(dist.device)
         micros = int((time.perf_counter() - start) * 1e6)
         return SsspResult(distances=dist, micros=micros,
@@ -141,35 +146,55 @@ def _bucket_of(dist: torch.Tensor, delta: float) -> torch.Tensor:
 
 
 def _settle(dist: torch.Tensor, pending: torch.Tensor, delta: float,
-            step) -> Tuple[torch.Tensor, int, int]:
-    """The delta-stepping schedule both bucketed engines share, as host
-    loops: walk buckets in ascending order; in each, ``step`` relaxes the
-    frontier (the pending nodes of the bucket) until it is empty.
+            step, *, cache: Optional[dict] = None, key=None
+            ) -> Tuple[torch.Tensor, int, int]:
+    """The delta-stepping schedule both bucketed engines share, as
+    ``graph_tpu``'s two nested ``while_loop``s: walk buckets in ascending
+    order; in each, ``step`` relaxes the frontier (the pending nodes of
+    the bucket) until it is empty.
 
-    ``step(dist, pending, frontier) -> (dist, pending)``.  Returns
-    (dist, settle steps, host reads).
+    ``step(dist, pending, frontier) -> (dist, pending)``.  On the card
+    both loops run in one CUDA graph, a WHILE node over buckets whose
+    body holds the settle WHILE node
+    (:func:`~graph_tpu_torch.engine.loop.device_while`, captured once per
+    ``cache[key]``); on the CPU they are host loops that read whether the
+    bucket is empty each settle step and the next bucket each bucket.
+    Returns (dist, settle steps, host reads).
     """
     delta = float(np.float32(delta))
-    curr_bin, steps, reads = 0, 0, 0
-    while curr_bin != _NO_BIN:
-        while True:
-            frontier = pending & (_bucket_of(dist, delta) == curr_bin)
-            reads += 1
-            if not bool(frontier.any()):  # host read: is the bucket empty?
-                break
-            dist, pending = step(dist, pending, frontier)
-            steps += 1
-        # host read: the next bucket, the least over the pending nodes
-        curr_bin = int(torch.where(pending, _bucket_of(dist, delta),
-                                   _NO_BIN).min())
-        reads += 1
-    return dist, steps, reads
+
+    def in_bucket(dist, pending, curr_bin):
+        return pending & (_bucket_of(dist, delta) == curr_bin)
+
+    def settle_step(state):
+        dist, pending, curr_bin, _, more = state
+        dist, pending = step(dist, pending, in_bucket(dist, pending,
+                                                      curr_bin))
+        return (dist, pending, curr_bin,
+                in_bucket(dist, pending, curr_bin).any(), more)
+
+    def next_bucket(state):
+        dist, pending, _, _, _ = state
+        # the next bucket: the least over the pending nodes
+        curr_bin = torch.where(pending, _bucket_of(dist, delta),
+                               _NO_BIN).min()
+        return (dist, pending, curr_bin,
+                in_bucket(dist, pending, curr_bin).any(),
+                curr_bin != _NO_BIN)
+
+    curr_bin = torch.zeros((), dtype=torch.int32, device=dist.device)
+    state = (dist, pending, curr_bin,
+             in_bucket(dist, pending, curr_bin).any(), True)
+    run = device_while((While(settle_step, Flag(3)), next_bucket), state,
+                       Flag(4), cache=cache, key=key)
+    return run.state[0], run.inner[0], run.host_reads
 
 
 def _delta_stepping_device(in_sources: torch.Tensor,
                            in_targets: torch.Tensor,
                            in_weights: torch.Tensor, start_node: int,
-                           delta: float, n: int
+                           delta: float, n: int, *,
+                           cache: Optional[dict] = None
                            ) -> Tuple[torch.Tensor, int, int]:
     """Delta-stepping with dense bucket masks (``engine="xla"``).
 
@@ -193,21 +218,24 @@ def _delta_stepping_device(in_sources: torch.Tensor,
                                                           n))
         return new_dist, pending | (new_dist < dist)
 
-    return _settle(dist, pending, delta, step)
+    return _settle(dist, pending, delta, step, cache=cache,
+                   key=("xla", float(np.float32(delta))))
 
 
 def _sssp_frontier_device(adj_t: torch.Tensor, adj_w: torch.Tensor,
                           start_node: int, delta: float,
-                          cap: int = _FRONTIER_CAP
+                          cap: int = _FRONTIER_CAP, *,
+                          cache: Optional[dict] = None
                           ) -> Tuple[torch.Tensor, int, int]:
     """Compacted-frontier delta-stepping (``engine="frontier"``).
 
     adj_t: (n+1, D) int32 out-targets, pad rows and slots = n; adj_w:
     (n+1, D) f32 weights, pad = f32::MAX.  Each settle step takes the
-    first ``cap`` frontier ids in ascending order (padded with n),
-    gathers their adjacency rows and scatter-mins the relaxations; pad
-    slots target row n with f32::MAX, never an improvement.  Returns
-    (dist[:n], settle steps, host reads).
+    first ``cap`` frontier ids in ascending order, padded with n
+    (``torch.nonzero_static``, ``graph_tpu``'s ``jnp.nonzero(size=cap,
+    fill_value=n)``: no host read), gathers their adjacency rows and
+    scatter-mins the relaxations; pad slots target row n with f32::MAX,
+    never an improvement.  Returns (dist[:n], settle steps, host reads).
     """
     n = adj_t.shape[0] - 1
     device = adj_t.device
@@ -216,20 +244,20 @@ def _sssp_frontier_device(adj_t: torch.Tensor, adj_w: torch.Tensor,
     dist[start_node] = 0.0
     pending = torch.zeros(n + 1, dtype=torch.bool, device=device)
     pending[start_node] = True
-    pad = torch.full((cap,), n, dtype=torch.int64, device=device)
 
     def step(dist, pending, frontier):
-        ids = torch.nonzero(frontier).flatten()[:cap]
-        ids = torch.cat([ids, pad[ids.numel():]])
+        ids = torch.nonzero_static(frontier, size=cap,
+                                   fill_value=n).flatten()
         pending = pending.index_fill(0, ids, False)
         cand = (dist[ids][:, None] + adj_w[ids]).reshape(-1)
         new_dist = dist.scatter_reduce(0, adj_t[ids].reshape(-1).long(),
                                        cand, "amin")
         return new_dist, pending | (new_dist < dist)
 
-    dist, steps, reads = _settle(dist, pending, delta, step)
-    # torch.nonzero reads the frontier's size back: one more per step
-    return dist[:n], steps, reads + steps
+    dist, steps, reads = _settle(dist, pending, delta, step, cache=cache,
+                                 key=("frontier", float(np.float32(delta)),
+                                      cap))
+    return dist[:n], steps, reads
 
 
 def _max_out_degree(graph: DirectedCsrGraph) -> int:
@@ -271,7 +299,7 @@ def _sssp_frontier(graph: DirectedCsrGraph, config) -> SsspResult:
     start = time.perf_counter()
     dist, steps, reads = _sssp_frontier_device(
         adj_t, adj_w, int(config.start_node), config.delta,
-        cap=_FRONTIER_CAP)
+        cap=_FRONTIER_CAP, cache=engine_for(graph, "loops", dict))
     synchronize(dist.device)
     micros = int((time.perf_counter() - start) * 1e6)
     return SsspResult(distances=dist, micros=micros, ran_iterations=steps,
@@ -298,18 +326,19 @@ def _sssp_plan(graph: DirectedCsrGraph, config) -> SsspResult:
         s = eng.perm[s : s + 1]
     dist = torch.full((n,), _PLAN_INF, dtype=torch.float32, device=eng.device)
     dist[s] = 0.0
-    iters = 0
-    while True:
+
+    def body(state):
+        dist, _ = state
         nd = torch.minimum(dist, eng.relax(dist, internal=True))
-        iters += 1
-        changed = bool((nd != dist).any())  # host read: decides the loop
-        dist = nd
-        if not changed:
-            break
-    dist = eng.to_public(dist)
+        return nd, (nd != dist).any()
+
+    run = device_while(body, (dist, True), Flag(1), cache=eng.loops,
+                       key="sssp")
+    dist = eng.to_public(run.state[0])
     synchronize(dist.device)
     micros = int((time.perf_counter() - start) * 1e6)
     # unreached sentinel: the reference keeps f32::MAX (sssp.rs:12)
     dist = dist.masked_fill(dist >= _PLAN_INF, float(INF))
-    return SsspResult(distances=dist, micros=micros, ran_iterations=iters,
-                      host_reads=iters)
+    return SsspResult(distances=dist, micros=micros,
+                      ran_iterations=run.iterations,
+                      host_reads=run.host_reads)

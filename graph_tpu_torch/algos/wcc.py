@@ -16,8 +16,11 @@ smallest node id in u's component.  Two engines hook:
   direction (an undirected graph's one CSR serves both), labels in the
   graph's id dtype.
 
-Jumps are n-sized index gathers.  The host reads one "changed" flag per
-round, since it decides the loop.  Both engines give the same labels in
+Jumps are n-sized index gathers.  The rounds run until a "changed" flag
+is false: on the card inside one CUDA graph with a conditional WHILE
+node (:func:`graph_tpu_torch.engine.loop.device_while`), the host reading
+the round count once at the end; on the CPU a host loop that reads the
+flag every round.  Both engines give the same labels in
 the same rounds; ``"auto"`` runs the plan engine, on the card the faster
 from RMAT 14 up and within launch noise below (PERF.md).
 The three reference variants compute the same fully specified partition
@@ -42,6 +45,7 @@ from graph_tpu_torch.algos.pagerank import _default_mesh, _rowblock_route
 from graph_tpu_torch.device import run_device, synchronize
 from graph_tpu_torch.dtypes import check_node_count_fits
 from graph_tpu_torch.engine.engine import EdgeEngine, engine_for
+from graph_tpu_torch.engine.loop import Flag, device_while
 from graph_tpu_torch.graph.csr import DirectedCsrGraph, UndirectedCsrGraph
 from graph_tpu_torch.ops.segment import segment_min_sorted
 
@@ -184,57 +188,65 @@ def _wcc_plan(graph, device=None) -> WccResult:
     """Min-label propagation with the EdgeEngine's integer segment-min.
 
     Labels are int32 node ids end to end; each round is one hook over
-    the symmetrized edges and two pointer jumps.
+    the symmetrized edges and two pointer jumps, and the loop is
+    ``graph_tpu``'s ``while_loop`` on a changed flag
+    (:func:`~graph_tpu_torch.engine.loop.device_while`, cached on the
+    engine).
     """
     n = graph.node_count
     check_node_count_fits(n, np.int32)  # labels are int32 node ids
     eng = _sym_engine(graph, device)
     start = time.perf_counter()
     comp = torch.arange(n, dtype=torch.int32, device=eng.device)
-    iters = 0
-    while True:
+
+    def body(state):
+        comp, _ = state
         new = torch.minimum(comp, eng.smin_int(comp, internal=True))
         new = new[new]          # jump (squares pointer chains)
         new = new[new]
-        iters += 1
-        changed = bool((new != comp).any())  # host read: decides the loop
-        comp = new
-        if not changed:
-            break
+        return new, (new != comp).any()
+
+    run = device_while(body, (comp, True), Flag(1), cache=eng.loops,
+                       key="wcc")
+    comp = run.state[0]
     synchronize(comp.device)
     micros = int((time.perf_counter() - start) * 1e6)
     ids = (graph.csr.targets if isinstance(graph, UndirectedCsrGraph)
            else graph.csr_out.targets)
-    return WccResult(components=comp.to(ids.dtype), ran_iterations=iters,
-                     micros=micros, host_reads=iters)
+    return WccResult(components=comp.to(ids.dtype),
+                     ran_iterations=run.iterations, micros=micros,
+                     host_reads=run.host_reads)
 
 
 def _wcc_device(fwd_sources: torch.Tensor, fwd_targets: torch.Tensor,
                 bwd_sources: torch.Tensor, bwd_targets: torch.Tensor,
-                n: int) -> Tuple[torch.Tensor, int]:
+                n: int, *, cache: Optional[dict] = None
+                ) -> Tuple[torch.Tensor, int, int]:
     """Min-label propagation with two sorted segment-mins per round, one
     per CSR direction, on the arrays' device.
 
     Labels take the targets' id dtype; an empty segment's min is the
-    dtype's max, so it never lowers a label.  Returns (labels, rounds);
-    the host reads one changed flag per round.
+    dtype's max, so it never lowers a label.  The loop is
+    :func:`~graph_tpu_torch.engine.loop.device_while` on a changed flag,
+    its capture kept in ``cache``.  Returns (labels, rounds, host reads).
     """
     comp = torch.arange(n, dtype=fwd_targets.dtype,
                         device=fwd_targets.device)
     fwd_t, bwd_t = fwd_targets.long(), bwd_targets.long()
-    iters = 0
-    while True:
+
+    def body(state):
+        comp, _ = state
         # hook: pull the minimum label across both edge directions
         m_out = segment_min_sorted(comp[fwd_t], fwd_sources, n)
         m_in = segment_min_sorted(comp[bwd_t], bwd_sources, n)
         new = torch.minimum(comp, torch.minimum(m_out, m_in))
         new = new[new.long()]  # jump: two squarings per round
         new = new[new.long()]
-        iters += 1
-        changed = bool((new != comp).any())  # host read: decides the loop
-        comp = new
-        if not changed:
-            return comp, iters
+        return new, (new != comp).any()
+
+    run = device_while(body, (comp, True), Flag(1), cache=cache,
+                       key=("wcc_xla", comp.device))
+    return run.state[0], run.iterations, run.host_reads
 
 
 def _wcc_xla(graph, device=None) -> WccResult:
@@ -248,8 +260,9 @@ def _wcc_xla(graph, device=None) -> WccResult:
     arrays = [a.to(device) for a in (fwd.sources, fwd.targets,
                                      bwd.sources, bwd.targets)]
     start = time.perf_counter()
-    comp, iters = _wcc_device(*arrays, graph.node_count)
+    comp, iters, reads = _wcc_device(
+        *arrays, graph.node_count, cache=engine_for(graph, "loops", dict))
     synchronize(comp.device)
     micros = int((time.perf_counter() - start) * 1e6)
     return WccResult(components=comp, ran_iterations=iters, micros=micros,
-                     host_reads=iters)
+                     host_reads=reads)

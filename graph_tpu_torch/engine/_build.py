@@ -30,8 +30,10 @@ NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
 _P = ctypes.c_void_p
 _I64 = ctypes.c_longlong
 _I32 = ctypes.c_int
+_PP = ctypes.POINTER(ctypes.c_void_p)
 #: The C entry point of each kernel: (pointers..., counts, [options],
-#: stream) -> cudaError.
+#: stream) -> cudaError; the device loop's graph assembly (``loop_*``)
+#: takes and returns opaque handles.
 SIGNATURES = {
     "k1_gather": (_P, _P, _P, _I64, _I32, _P),
     "k1_gather_weighted": (_P, _P, _P, _P, _I64, _I32, _I32, _I32, _P),
@@ -46,6 +48,14 @@ SIGNATURES = {
     "probe_sec_route": (_P,) * 15 + (_I64,) + (_I32,) * 4 + (_P,),
     "probe_sec128": (_P,) * 15 + (_I64,) + (_I32,) * 4 + (_P,),
     "probe_sec_clusters": (_I32,),
+    "loop_seq_new": (_PP,),
+    "loop_seq_child": (_P, _P),
+    "loop_seq_while": (_P, _I32, _P, _P, _P, _P, _PP),
+    "loop_seq_close": (_P,),
+    "loop_seq_instantiate": (_P, _PP),
+    "loop_exec_launch": (_P, _P),
+    "loop_seq_free": (_P,),
+    "loop_exec_free": (_P,),
 }
 #: The source (``csrc/<source>.cu``) that defines each entry point.
 SOURCES = {
@@ -62,6 +72,10 @@ SOURCES = {
     "probe_sec_route": "k2_sections",
     "probe_sec128": "k2_sections",
     "probe_sec_clusters": "k2_sections",
+    **{name: "device_loop" for name in (
+        "loop_seq_new", "loop_seq_child", "loop_seq_while", "loop_seq_close",
+        "loop_seq_instantiate", "loop_exec_launch", "loop_seq_free",
+        "loop_exec_free")},
 }
 
 _libs: dict = {}

@@ -63,6 +63,9 @@ class EdgeEngine:
             self.iperm[self.perm] = torch.arange(plan.n, device=self.device)
             self.window = K1_WINDOW
         self.k2_cuts = k2_tile_cuts(plan.indptr, plan.m)
+        #: device loops captured over this engine
+        #: (:func:`graph_tpu_torch.engine.loop.device_while`), by driver
+        self.loops = {}
 
     @classmethod
     def build(cls, src, dst, n, *, values=None, relabel=None, cache_dir=None,

@@ -25,7 +25,8 @@ PORT_MODULES = sorted(
 
 def test_import_pulls_in_no_jax():
     assert {"graph_tpu_torch.builder", "graph_tpu_torch.io.edgelist",
-            "graph_tpu_torch.native.host_csr"} <= set(PORT_MODULES)
+            "graph_tpu_torch.native.host_csr",
+            "graph_tpu_torch.engine.loop"} <= set(PORT_MODULES)
     code = ("import importlib, sys\n"
             f"for name in {PORT_MODULES!r}:\n"
             "    importlib.import_module(name)\n"
@@ -88,6 +89,12 @@ def test_entry_points_raise_without_device_or_card(no_card):
     for call in calls:
         with pytest.raises(RuntimeError, match="device='cpu'"):
             call()
+    # the device loop has no CPU mode: without a card it raises
+    from graph_tpu_torch.engine.loop import DeviceLoop, Flag
+
+    with pytest.raises(RuntimeError, match="needs a CUDA device"):
+        DeviceLoop(lambda s: s, (torch.zeros(2), True), Flag(1),
+                   torch.device("cuda"))
     # asked for, the CPU works
     assert build_directed(src, dst, device="cpu").device.type == "cpu"
     assert build_undirected(src, dst, device="cpu").device.type == "cpu"

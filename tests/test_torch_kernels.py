@@ -593,3 +593,176 @@ def test_stage_512_edge_cases_match_plain_on_card(cuda_device, widths):
                 assert _bits_equal(a, b), (program, init)
             n += 1
     assert ks.LAUNCHES["probe_sec_route"] - before == n
+
+
+# ------------------------------------------------------- device loops
+
+
+def _loop_graphs(device):
+    """RMAT 12 (seed 5, weights from default_rng(3)) and a 64 x 64 grid,
+    4-neighbour, both directions, weights uniform in [0.1, 4.0)."""
+    import graph_tpu_torch as gtt
+    from graph_tpu_torch.generate import host_rmat
+
+    src, dst = host_rmat(12, seed=5)
+    w = (np.random.default_rng(3).random(src.size) * 4).astype(np.float32)
+    rmat = gtt.build_directed(src, dst, w, node_count=1 << 12, device=device)
+    side = 64
+    ii = np.arange(side * side)
+    right, down = ii[ii % side != side - 1], ii[ii < side * side - side]
+    gsrc = np.concatenate([right, right + 1, down, down + side])
+    gdst = np.concatenate([right + 1, right, down + side, down])
+    gw = np.random.default_rng(9).uniform(0.1, 4.0, gsrc.size).astype(
+        np.float32)
+    grid = gtt.build_directed(gsrc, gdst, gw, node_count=side * side,
+                              device=device)
+    return {"rmat12": (rmat, int(np.bincount(src).argmax())),
+            "grid64": (grid, 0)}
+
+
+def _host_loops(monkeypatch):
+    """Every driver's ``device_while`` replaced by the host loop."""
+    import importlib
+
+    from graph_tpu_torch.engine.loop import host_while
+
+    for name in ("pagerank", "wcc", "sssp"):
+        mod = importlib.import_module(f"graph_tpu_torch.algos.{name}")
+        monkeypatch.setattr(mod, "device_while", lambda body, state, cond,
+                            **_: host_while(body, state, cond))
+
+
+LOOP_PATHS = {
+    "pagerank_tol": lambda gtt, g, s: gtt.page_rank(
+        g, gtt.PageRankConfig(engine="plan")),
+    "pagerank_tol0": lambda gtt, g, s: gtt.page_rank(
+        g, gtt.PageRankConfig(engine="plan", tolerance=0.0)),
+    "pagerank_cumsum": lambda gtt, g, s: gtt.page_rank(
+        g, gtt.PageRankConfig(engine="cumsum", max_iterations=30,
+                              tolerance=1e-6)),
+    "wcc_plan": lambda gtt, g, s: gtt.wcc(g, gtt.WccConfig(engine="plan")),
+    "wcc_xla": lambda gtt, g, s: gtt.wcc(g, gtt.WccConfig(engine="xla")),
+    "sssp_plan": lambda gtt, g, s: gtt.delta_stepping(
+        g, gtt.DeltaSteppingConfig(s, 2.0, engine="plan")),
+    "sssp_xla": lambda gtt, g, s: gtt.delta_stepping(
+        g, gtt.DeltaSteppingConfig(s, 2.0, engine="xla")),
+    "sssp_frontier": lambda gtt, g, s: gtt.delta_stepping(
+        g, gtt.DeltaSteppingConfig(s, 2.0, engine="frontier")),
+}
+#: The K1 and K2 kernels of each plan path, launched once a round.
+LOOP_KERNELS = {"pagerank_tol": ("k1_gather", "k2_reduce"),
+                "pagerank_tol0": ("k1_gather", "k2_reduce"),
+                "wcc_plan": ("k1_gather", "k2_reduce_min"),
+                "sssp_plan": ("k1_gather_weighted", "k2_reduce_min")}
+
+
+def _result_of(res):
+    for name in ("scores", "components", "distances"):
+        if hasattr(res, name):
+            return getattr(res, name)
+
+
+@pytest.mark.requires_cuda
+@pytest.mark.parametrize("graph", ["rmat12", "grid64"])
+@pytest.mark.parametrize("path", sorted(LOOP_PATHS))
+def test_device_loop_bit_equal_to_host_loop_on_card(cuda_device, path,
+                                                    graph, monkeypatch):
+    """Each driver's device loop against its host loop on the card: the
+    same bits, the same iterations, one host read, and K1 and K2 launched
+    once an iteration; a second run (from the cache) the same again."""
+    import graph_tpu_torch as gtt
+
+    g, start = _loop_graphs(cuda_device)[graph]
+    run = LOOP_PATHS[path]
+    first = run(gtt, g, start)
+    LAUNCHES.update({k: 0 for k in LAUNCHES})
+    got = run(gtt, g, start)  # the cached graph, new state copied in
+    torch.cuda.synchronize()
+    launches = dict(LAUNCHES)
+    with monkeypatch.context() as mp:
+        _host_loops(mp)
+        want = run(gtt, g, start)
+    for res in (first, got):
+        assert _bits_equal(_result_of(res), _result_of(want))
+        assert res.ran_iterations == want.ran_iterations >= 1
+        assert res.host_reads == 1
+    assert want.host_reads >= 1
+    for name in LOOP_KERNELS.get(path, ()):
+        assert launches[name] == got.ran_iterations, (name, launches)
+    if path.startswith("pagerank"):
+        assert got.error == want.error
+
+
+@pytest.mark.requires_cuda
+def test_device_loop_new_inputs_and_zero_iterations_on_card(cuda_device,
+                                                            monkeypatch):
+    """A cached loop run with a new start node and new limits gives the
+    host loop's results; ``max_iterations=0`` returns the initial
+    scores, as ``lax.while_loop`` runs no body."""
+    import graph_tpu_torch as gtt
+
+    g, _ = _loop_graphs(cuda_device)["grid64"]
+    runs = []
+    for start in (0, 2080):
+        runs.append(gtt.delta_stepping(g, gtt.DeltaSteppingConfig(start,
+                                                                   2.0)))
+    for cfg in ({"max_iterations": 3, "tolerance": 0.0},
+                {"max_iterations": 50, "tolerance": 1e-5}):
+        runs.append(gtt.page_rank(g, gtt.PageRankConfig(**cfg)))
+    with monkeypatch.context() as mp:
+        _host_loops(mp)
+        want = [gtt.delta_stepping(g, gtt.DeltaSteppingConfig(s, 2.0))
+                for s in (0, 2080)]
+        want += [gtt.page_rank(g, gtt.PageRankConfig(**cfg)) for cfg in (
+            {"max_iterations": 3, "tolerance": 0.0},
+            {"max_iterations": 50, "tolerance": 1e-5})]
+    for got, ref in zip(runs, want):
+        assert _bits_equal(_result_of(got), _result_of(ref))
+        assert got.ran_iterations == ref.ran_iterations
+    assert not torch.equal(runs[0].distances, runs[1].distances)
+    assert runs[2].ran_iterations == 3 and 3 < runs[3].ran_iterations < 50
+    zero = gtt.page_rank(g, gtt.PageRankConfig(max_iterations=0))
+    n = g.node_count
+    assert zero.ran_iterations == 0 and zero.host_reads == 1
+    assert zero.error == float("inf")
+    assert torch.equal(zero.scores, torch.full(
+        (n,), float(np.float32(1) / np.float32(n)), device=cuda_device))
+
+
+@pytest.mark.requires_cuda
+def test_device_while_nested_and_raises_on_a_host_read_on_card(cuda_device):
+    """A nested loop counts each loop's bodies; a body that reads the
+    card from the host cannot be captured, and raises."""
+    from graph_tpu_torch.engine.loop import (
+        Flag, Residual, While, device_while, host_while)
+
+    def inner(s):
+        x, i, j, more, go = s
+        j = j + 1
+        return x + 1, i, j, j < 3, go
+
+    def outer(s):
+        x, i, j, more, go = s
+        i = i + 1
+        return x * 2, i, torch.zeros_like(j), i > 0, i < 4
+
+    zero = torch.zeros((), dtype=torch.int32, device=cuda_device)
+    state = (torch.ones(5, device=cuda_device), zero, zero, True, True)
+    body = (While(inner, Flag(3)), outer)
+    got = device_while(body, state, Flag(4))
+    want = host_while(body, state, Flag(4))
+    assert torch.equal(got.state[0], want.state[0])
+    assert (got.iterations, got.inner) == (want.iterations, want.inner) \
+        == (4, (12,))
+    assert got.host_reads == 1 < want.host_reads
+
+    def reads(s):
+        x, err = s
+        return x + 1, (x.sum() * float(x[0].item())) * 0
+    with pytest.raises(RuntimeError):
+        device_while(reads, (torch.ones(4, device=cuda_device), 1.0),
+                     Residual(1, 5, 0.5))
+    torch.cuda.synchronize()
+    # the card still runs loops after the failed capture
+    again = device_while(body, state, Flag(4))
+    assert torch.equal(again.state[0], want.state[0])
