@@ -181,6 +181,10 @@ PATH_KERNELS = {"pagerank": ("k1_gather", "k2_reduce"),
 LOOP_PATHS = {"pagerank", "wcc", "sssp", "builder_pagerank", "builder_wcc",
               "api_pagerank", "api_wcc", "server_pagerank",
               "flight_pagerank", "cli_pagerank", "engines_sssp_grid"}
+#: How the kernel rows count the launches of the LOOP_PATHS.
+LOOP_LAUNCHES = ("on the paths that run as device loops, launches "
+                 "captured per body (held against the kernel nodes of the "
+                 "captured graph) times the bodies the card counted")
 WIKI = np.array([(1, 2), (2, 1), (4, 0), (4, 1), (5, 4), (5, 1), (5, 6),
                  (6, 1), (6, 5), (7, 1), (7, 5), (8, 1), (8, 5), (9, 1),
                  (9, 5), (10, 1), (10, 5), (11, 5), (12, 5)])
@@ -1372,11 +1376,43 @@ def host_loops():
             mod.device_while = fn
 
 
-def loop_path(kernels, name, fn, cache, key, path_kernels):
+@contextlib.contextmanager
+def other_loops(side, pair):
+    """Every driver's device loop captured into ``side`` (keyed by the
+    engine's cache and the driver's key) with a one-step body on two sets
+    of buffers if ``pair``, else on one set that each round copies its
+    outputs back into, whatever the state's size, while the block runs."""
+    import importlib
+
+    from graph_tpu_torch.engine import loop
+
+    def routed(body, state, cond, cache=None, key=None):
+        return loop.device_while(body, state, cond, cache=side,
+                                 key=(id(cache), key))
+
+    mods = [importlib.import_module(f"graph_tpu_torch.algos.{name}")
+            for name in ("pagerank", "wcc", "sssp")]
+    saved = [mod.device_while for mod in mods], loop.PAIR_MIN_BYTES
+    for mod in mods:
+        mod.device_while = routed
+    loop.PAIR_MIN_BYTES = 0 if pair else 1 << 62
+    try:
+        yield
+    finally:
+        for mod, fn in zip(mods, saved[0]):
+            mod.device_while = fn
+        loop.PAIR_MIN_BYTES = saved[1]
+
+
+def loop_path(kernels, name, fn, cache, key, path_kernels, reps):
     """One driver's device loop against its host loop on the card: capture
-    and instantiation seconds apart (the cached loop dropped first), then
-    3 runs each way (their launches, host reads, bits and iterations
-    held, their seconds kept)."""
+    and instantiation seconds apart (the cached loop dropped first); 3
+    runs with their launches and host reads held; then ``reps`` rounds of
+    one run each way in turn (and, for a one-step body, one the other way
+    its state can go, two sets of buffers or one, ``other_loops``), bits
+    and iterations held, seconds and the graphs' card times kept."""
+    import statistics
+
     import torch
 
     from graph_tpu_torch.engine import loop
@@ -1393,40 +1429,65 @@ def loop_path(kernels, name, fn, cache, key, path_kernels):
     runs, res = timed_runs(fn)
     launches = {**kernels.LAUNCHES, **loop.LAUNCHES}
     graph_ms = captured.graph_ms()  # the card's time of the last run
-    iters, reps = res.ran_iterations, len(runs)
+    iters, n_runs = res.ran_iterations, len(runs)
     for kname in path_kernels:
-        check(launches[kname] == reps * iters,
+        check(launches[kname] == n_runs * iters,
               f"device loop {name}: {kname} launched {launches[kname]} "
-              f"times in {reps} runs of {iters} iterations")
-    check(launches["device_loop"] == reps and res.host_reads == 1,
+              f"times in {n_runs} runs of {iters} iterations")
+    check(launches["device_loop"] == n_runs and res.host_reads == 1,
           f"device loop {name}: {launches['device_loop']} graph launches "
-          f"in {reps} runs, {res.host_reads} host reads")
-    with host_loops():
-        host_runs, want = timed_runs(fn)
+          f"in {n_runs} runs, {res.host_reads} host reads")
+    modes = {"device": contextlib.nullcontext, "host": host_loops}
+    graphs = {"device": captured}  # each mode's loop, for its card time
+    pair = captured.other is not None  # the device loop's two buffers
+    if captured.one_step:
+        side, other = {}, "copy" if pair else "pair"
+        modes[other] = lambda: other_loops(side, not pair)
+        with modes[other]():
+            fn()  # captures
+        graphs[other] = side[(id(cache), key)]
+    times, results = {m: [] for m in modes}, {}
+    card_ms = {m: [] for m in graphs}
+    for _ in range(reps):
+        for mode, ctx in modes.items():
+            with ctx():
+                t, results[mode] = timed_runs(fn, 1)
+            times[mode] += t
+            if mode in graphs:
+                card_ms[mode].append(graphs[mode].graph_ms())
     field = next(f for f in ("scores", "distances", "components")
                  if hasattr(res, f))
-    got_t, want_t = getattr(res, field), getattr(want, field)
-    err = bits_diff(got_t, want_t)
-    check(got_t.dtype == want_t.dtype and err == 0
-          and torch.equal(got_t, want_t),
-          f"device loop {name}: {field} differ from the host loop's "
-          f"(max {err})")
-    check(res.ran_iterations == want.ran_iterations,
-          f"device loop {name}: {res.ran_iterations} iterations, the host "
-          f"loop {want.ran_iterations}")
-    if field == "scores":
-        check(res.error == want.error, f"device loop {name}: error "
-              f"{res.error}, the host loop's {want.error}")
-    return {"iterations": iters, "host_reads": res.host_reads,
-            "host_loop_reads": want.host_reads, "max_abs_err": err,
-            "launches_a_run": {k: v // reps for k, v in launches.items()
-                               if v},
-            "device_run_s": runs, "host_run_s": host_runs,
-            "device_ms": min(runs) * 1e3, "host_ms": min(host_runs) * 1e3,
-            "graph_ms": graph_ms, "graph_share": graph_ms / (runs[-1] * 1e3),
-            "capture_s": captured.capture_s,
-            "instantiate_s": captured.instantiate_s,
-            "first_run_s": first_s, "pieces": len(captured.graphs)}
+    want = results["host"]
+    err = 0
+    for mode, got in (("device", res), *results.items()):
+        got_t, want_t = getattr(got, field), getattr(want, field)
+        err = max(err, bits_diff(got_t, want_t))
+        check(got_t.dtype == want_t.dtype and torch.equal(got_t, want_t),
+              f"device loop {name} ({mode}): {field} differ from the host "
+              f"loop's (max {bits_diff(got_t, want_t)})")
+        check(got.ran_iterations == want.ran_iterations,
+              f"device loop {name} ({mode}): {got.ran_iterations} "
+              f"iterations, the host loop {want.ran_iterations}")
+        if field == "scores":
+            check(got.error == want.error, f"device loop {name} ({mode}): "
+                  f"error {got.error}, the host loop's {want.error}")
+    out = {"iterations": iters, "host_reads": res.host_reads,
+           "host_loop_reads": want.host_reads, "max_abs_err": err,
+           "launches_a_run": {k: v // n_runs for k, v in launches.items()
+                              if v},
+           "graph_ms": graph_ms, "graph_share": graph_ms / (runs[-1] * 1e3),
+           "capture_s": captured.capture_s,
+           "instantiate_s": captured.instantiate_s,
+           "first_run_s": first_s, "pieces": len(captured.graphs),
+           "buffers": 2 if pair else 1, "rounds": reps}
+    for mode, ts in times.items():
+        out[f"{mode}_run_s"] = ts
+        out[f"{mode}_ms"] = min(ts) * 1e3
+        out[f"{mode}_median_ms"] = statistics.median(ts) * 1e3
+    for mode, ms in card_ms.items():
+        out[f"{mode}_graph_ms"] = ms
+        out[f"{mode}_graph_median_ms"] = statistics.median(ms)
+    return out
 
 
 def device_loop_phase(gtt, kernels, card, graph, wgraph, start, grid):
@@ -1447,24 +1508,27 @@ def device_loop_phase(gtt, kernels, card, graph, wgraph, start, grid):
     pr_key = ("page_rank", "plan", float(np.float32(0.85)))
     pr_tol0 = gtt.PageRankConfig(engine="plan", max_iterations=ITERS,
                                  tolerance=0.0)
+    # rounds of one run each way: 10 where a run takes milliseconds, fewer
+    # where the host loop takes 0.3 s (the grid's SSSP) or 3 s (frontier)
     paths = {
         "pagerank_tol_1e-4": (lambda: gtt.page_rank(
             graph, gtt.PageRankConfig(engine="plan")), eng.loops, pr_key,
-            PATH_KERNELS["pagerank"]),
+            PATH_KERNELS["pagerank"], 10),
         "pagerank_tol_0": (lambda: gtt.page_rank(graph, pr_tol0),
-                           eng.loops, pr_key, PATH_KERNELS["pagerank"]),
+                           eng.loops, pr_key, PATH_KERNELS["pagerank"], 10),
         "wcc_plan": (lambda: gtt.wcc(graph), _sym_engine(graph).loops,
-                     "wcc", PATH_KERNELS["wcc"]),
+                     "wcc", PATH_KERNELS["wcc"], 10),
         "sssp_plan_rmat": (lambda: gtt.delta_stepping(
             wgraph, gtt.DeltaSteppingConfig(start, 3.0)),
-            _weighted_engine(wgraph).loops, "sssp", PATH_KERNELS["sssp"]),
+            _weighted_engine(wgraph).loops, "sssp", PATH_KERNELS["sssp"],
+            10),
         "sssp_plan_grid": (lambda: gtt.delta_stepping(
             grid, gtt.DeltaSteppingConfig(0, 2.0)),
-            _weighted_engine(grid).loops, "sssp", PATH_KERNELS["sssp"]),
+            _weighted_engine(grid).loops, "sssp", PATH_KERNELS["sssp"], 5),
         "delta_stepping_frontier_grid": (lambda: gtt.delta_stepping(
             grid, gtt.DeltaSteppingConfig(0, 2.0, engine="frontier")),
             engine_for(grid, "loops", dict),
-            ("frontier", 2.0, _FRONTIER_CAP), ()),
+            ("frontier", 2.0, _FRONTIER_CAP), (), 3),
     }
     out = {name: loop_path(kernels, name, *spec)
            for name, spec in paths.items()}
@@ -3079,6 +3143,7 @@ def run(rmat):
         t["launches_by_path"] = {
             path: runs[t["name"]]
             for path, runs in by_path[t["path"].split()[0]].items()}
+        t["launches_counted"] = LOOP_LAUNCHES
     # the device loop's graph: one launch a run of every path it drives
     loop_row["launches_by_path"] = {
         f"{group}: {path}": runs["device_loop"]

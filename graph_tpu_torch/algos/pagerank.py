@@ -48,7 +48,8 @@ import torch
 
 from graph_tpu_torch.device import synchronize
 from graph_tpu_torch.engine.engine import EdgeEngine, engine_for
-from graph_tpu_torch.engine.loop import Residual, device_while
+from graph_tpu_torch.engine.loop import (
+    Residual, device_while, host_while, into)
 from graph_tpu_torch.graph.csr import DirectedCsrGraph
 from graph_tpu_torch.ops.segment import (
     segment_sum_fixedpoint, segment_sum_sorted)
@@ -182,10 +183,12 @@ def _scalars(n: int, damping_factor: float) -> Tuple[float, float, float]:
         float(damping)
 
 
-def _update(y: torch.Tensor, base: float, d: float) -> torch.Tensor:
+def _update(y: torch.Tensor, base: float, d: float,
+            out: Optional[torch.Tensor] = None) -> torch.Tensor:
     """``base + d * y`` with one rounding (a fused multiply-add), as XLA
-    compiles graph_tpu's update."""
-    return torch.full_like(y, base).add_(y, alpha=d)
+    compiles graph_tpu's update; into ``out`` when given."""
+    out = torch.full_like(y, base) if out is None else out.fill_(base)
+    return out.add_(y, alpha=d)
 
 
 def _jacobi(sums: Callable[[torch.Tensor], torch.Tensor],
@@ -204,53 +207,47 @@ def _jacobi(sums: Callable[[torch.Tensor], torch.Tensor],
     the loop, else once at the end.  ``log`` reads and logs it every
     iteration, in a host loop on any device.
     """
-    if log:
-        return _jacobi_logged(sums, inv_outdeg, max_iterations, tolerance,
-                              damping_factor)
     n = inv_outdeg.numel()
     init, base, d = _scalars(n, damping_factor)
     scores = torch.full((n,), init, dtype=torch.float32,
                         device=inv_outdeg.device)
 
-    def body(state):
+    def body(state, out=None):
         # out-scores are the scores times 1/outdeg, taken at the top of
         # the body: the same bits as graph_tpu's carried out_scores, and
-        # one vector fewer for the device loop to copy back each round
+        # no second vector carried from round to round
         scores, _, inv = state
         with annotate(ITERATION):
-            new_scores = _update(sums(scores * inv), base, d)
+            new_scores = _update(sums(scores * inv), base, d, into(out, 0))
             err = torch.sum(torch.abs(new_scores - scores))
             return new_scores, err, inv
 
-    run = device_while(body, (scores, float("inf"), inv_outdeg),
-                       Residual(1, max_iterations, tolerance),
-                       cache=cache, key=key)
+    state = (scores, float("inf"), inv_outdeg)
+    cond = Residual(1, max_iterations, tolerance)
+    if log:
+        run = host_while(_logged(body), state, cond)
+        # one read an iteration, the logged residual's
+        return run.state[0], run.iterations, run.value, run.iterations
+    run = device_while(body, state, cond, cache=cache, key=key)
     return run.state[0], run.iterations, float(run.value), run.host_reads
 
 
-def _jacobi_logged(sums, inv_outdeg: torch.Tensor, max_iterations: int,
-                   tolerance: float, damping_factor: float
-                   ) -> Tuple[torch.Tensor, int, float, int]:
-    """:func:`_jacobi` as a host loop that reads the residual and logs it
-    with the iteration's seconds, every iteration (``graph_tpu``'s
-    ``_page_rank_logged``)."""
-    n = inv_outdeg.numel()
-    init, base, d = _scalars(n, damping_factor)
-    tolerance = float(np.float32(tolerance))
-    scores = torch.full((n,), init, dtype=torch.float32,
-                        device=inv_outdeg.device)
-    out_scores = scores * inv_outdeg
-    it, err = 0, float("inf")
-    while it < max_iterations and err >= tolerance:
+def _logged(body):
+    """``body`` reading its residual back and logging it with the
+    iteration's seconds (``graph_tpu``'s ``_page_rank_logged``)."""
+    it = 0
+
+    def logged(state):
+        nonlocal it
         t0 = time.perf_counter()
-        with annotate(ITERATION):
-            new_scores = _update(sums(out_scores), base, d)
-            err = torch.sum(torch.abs(new_scores - scores)).item()
-            scores, out_scores = new_scores, new_scores * inv_outdeg
-            it += 1
+        scores, err, inv = body(state)
+        err = err.item()  # host read: the residual, logged
+        it += 1
         logger.info("PageRank iteration %d finished with an error of "
                     "%.3e in %.3fs", it, err, time.perf_counter() - t0)
-    return scores, it, err, it
+        return scores, err, inv
+
+    return logged
 
 
 def _csr_sums(in_sources, in_targets, in_offsets, engine: str):

@@ -42,7 +42,7 @@ from graph_tpu_torch.algos.pagerank import _default_mesh, _rowblock_route
 from graph_tpu_torch.device import synchronize
 from graph_tpu_torch.engine.engine import EdgeEngine, engine_for
 from graph_tpu_torch.engine.kernels import INF as _PLAN_INF
-from graph_tpu_torch.engine.loop import Flag, While, device_while
+from graph_tpu_torch.engine.loop import Flag, While, device_while, into
 from graph_tpu_torch.graph.csr import DirectedCsrGraph
 from graph_tpu_torch.ops.segment import segment_min_sorted
 
@@ -327,9 +327,10 @@ def _sssp_plan(graph: DirectedCsrGraph, config) -> SsspResult:
     dist = torch.full((n,), _PLAN_INF, dtype=torch.float32, device=eng.device)
     dist[s] = 0.0
 
-    def body(state):
+    def body(state, out=None):
         dist, _ = state
-        nd = torch.minimum(dist, eng.relax(dist, internal=True))
+        nd = torch.minimum(dist, eng.relax(dist, internal=True),
+                           out=into(out, 0))
         return nd, (nd != dist).any()
 
     run = device_while(body, (dist, True), Flag(1), cache=eng.loops,

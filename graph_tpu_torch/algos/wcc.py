@@ -45,7 +45,7 @@ from graph_tpu_torch.algos.pagerank import _default_mesh, _rowblock_route
 from graph_tpu_torch.device import run_device, synchronize
 from graph_tpu_torch.dtypes import check_node_count_fits
 from graph_tpu_torch.engine.engine import EdgeEngine, engine_for
-from graph_tpu_torch.engine.loop import Flag, device_while
+from graph_tpu_torch.engine.loop import Flag, device_while, into
 from graph_tpu_torch.graph.csr import DirectedCsrGraph, UndirectedCsrGraph
 from graph_tpu_torch.ops.segment import segment_min_sorted
 
@@ -199,11 +199,11 @@ def _wcc_plan(graph, device=None) -> WccResult:
     start = time.perf_counter()
     comp = torch.arange(n, dtype=torch.int32, device=eng.device)
 
-    def body(state):
+    def body(state, out=None):
         comp, _ = state
         new = torch.minimum(comp, eng.smin_int(comp, internal=True))
         new = new[new]          # jump (squares pointer chains)
-        new = new[new]
+        new = torch.index_select(new, 0, new, out=into(out, 0))
         return new, (new != comp).any()
 
     run = device_while(body, (comp, True), Flag(1), cache=eng.loops,
@@ -234,14 +234,14 @@ def _wcc_device(fwd_sources: torch.Tensor, fwd_targets: torch.Tensor,
                         device=fwd_targets.device)
     fwd_t, bwd_t = fwd_targets.long(), bwd_targets.long()
 
-    def body(state):
+    def body(state, out=None):
         comp, _ = state
         # hook: pull the minimum label across both edge directions
         m_out = segment_min_sorted(comp[fwd_t], fwd_sources, n)
         m_in = segment_min_sorted(comp[bwd_t], bwd_sources, n)
         new = torch.minimum(comp, torch.minimum(m_out, m_in))
         new = new[new.long()]  # jump: two squarings per round
-        new = new[new.long()]
+        new = torch.index_select(new, 0, new.long(), out=into(out, 0))
         return new, (new != comp).any()
 
     run = device_while(body, (comp, True), Flag(1), cache=cache,

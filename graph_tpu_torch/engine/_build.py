@@ -51,11 +51,14 @@ SIGNATURES = {
     "loop_seq_new": (_PP,),
     "loop_seq_child": (_P, _P),
     "loop_seq_while": (_P, _I32, _P, _P, _P, _P, _PP),
+    "loop_seq_if": (_P, _P, _P, _PP),
     "loop_seq_close": (_P,),
     "loop_seq_instantiate": (_P, _PP),
     "loop_exec_launch": (_P, _P),
     "loop_seq_free": (_P,),
     "loop_exec_free": (_P,),
+    "loop_graph_kernels": (_P, ctypes.c_char_p, _I64,
+                           ctypes.POINTER(ctypes.c_longlong)),
 }
 #: The source (``csrc/<source>.cu``) that defines each entry point.
 SOURCES = {
@@ -73,9 +76,9 @@ SOURCES = {
     "probe_sec128": "k2_sections",
     "probe_sec_clusters": "k2_sections",
     **{name: "device_loop" for name in (
-        "loop_seq_new", "loop_seq_child", "loop_seq_while", "loop_seq_close",
-        "loop_seq_instantiate", "loop_exec_launch", "loop_seq_free",
-        "loop_exec_free")},
+        "loop_seq_new", "loop_seq_child", "loop_seq_while", "loop_seq_if",
+        "loop_seq_close", "loop_seq_instantiate", "loop_exec_launch",
+        "loop_seq_free", "loop_exec_free", "loop_graph_kernels")},
 }
 
 _libs: dict = {}

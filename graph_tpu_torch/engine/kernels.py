@@ -62,6 +62,13 @@ K2_TILE = 1920
 #: one where it launches its kernel, and nowhere else.
 LAUNCHES = {"k1_gather": 0, "k1_gather_weighted": 0, "k2_reduce": 0,
             "k2_reduce_min": 0}
+#: The device function each wrapper launches once a call, as a pattern over
+#: mangled kernel names: a captured graph's kernel nodes are counted by it
+#: (:mod:`graph_tpu_torch.engine.loop`).
+KERNEL_NODES = {"k1_gather": r"k1_gather_kernel",
+                "k1_gather_weighted": r"k1_gather_weighted_kernel",
+                "k2_reduce": r"k2_tile_kernel.*SumOp",
+                "k2_reduce_min": r"k2_tile_kernel.*MinOp"}
 
 
 def reset_launches() -> None:

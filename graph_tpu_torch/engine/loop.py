@@ -25,19 +25,29 @@ callable, or a tuple of steps run in order, each a callable or a nested
 :class:`Residual` over one scalar of the state.
 
 On the card the body is captured once: it must launch no host read
-(``.item()``, ``bool()``, ``nonzero``), or capture raises.  Its outputs
-are copied into the state buffers at the end of each piece; an output
-that is its own input (a loop-invariant) is not copied.  Given a
-``cache`` (a dict, held by the engine or the graph the loop runs on, as
-``graph_tpu`` holds ``eng._pr_runs``), the captured loop is kept under
-``key`` and a later call only copies its new state into the captured
-buffers: the body and the condition's kind must then be the same, and
-the closure of the first call (whose tensors the graph reads) is the one
-that runs.
+(``.item()``, ``bool()``, ``nonzero``), or capture raises.  A body that
+is one callable over a large state (:func:`two_buffers`) runs on two
+sets of state buffers, captured twice: the first reads the first set and
+writes the second, the second the reverse, so that no round copies its
+result back.  It is called ``body(state, out)`` there, ``out`` holding
+for each state entry the buffer its new value goes to: an op may write
+into it (``out=``, see :func:`into`) and return it; any other result is
+copied into it.  On the host, and as a step of a nested body, it is
+called ``body(state)``.  A nested body's pieces, and a small state's
+body, copy their outputs into one set of buffers.  An output that is its
+own input (a loop-invariant) is never copied.  Given a ``cache`` (a
+dict, held by the engine or the graph the loop runs on, as ``graph_tpu``
+holds ``eng._pr_runs``), the captured loop is kept under ``key`` and a
+later call only copies its new state into the captured buffers: the body
+and the condition's kind must then be the same, and the closure of the
+first call (whose tensors the graph reads) is the one that runs.  A
+cached loop serves one run at a time: threads that share it take turns,
+from copying their state in to cloning the result out.
 
 The kernel wrappers count their launches in Python, which on the card
 happens once, at capture.  :func:`device_while` takes those counts as the
-per-body launches and, after each run, adds to
+per-body launches, holds them against the kernel nodes of each captured
+graph (``kernels.KERNEL_NODES``), and, after each run, adds to
 ``graph_tpu_torch.engine.kernels.LAUNCHES`` the per-body counts times the
 bodies the device reports; capture itself counts nothing.
 """
@@ -46,6 +56,8 @@ from __future__ import annotations
 
 import ctypes
 import dataclasses
+import re
+import threading
 import time
 from typing import Callable, Optional, Sequence, Tuple, Union
 
@@ -116,6 +128,15 @@ class Residual:
 
 Cond = Union[Flag, Residual]
 
+#: The bytes of a state's largest tensor from which a one-step body runs
+#: on two sets of buffers.  Their rounds of two bodies need an IF node,
+#: which costs more than copying a small vector back.  On an H100 (700 W,
+#: chip_smoke's ``device_loop`` phase, which times both ways) two buffers
+#: took 1.1-1.3 µs a round more than the copy at 4 MB (SSSP on the 1024
+#: grid), and at 16 MB 3.6-4.9 and 9.6-10.0 µs a round less (PageRank and
+#: SSSP at RMAT 22) but 3.6-4.8 µs more (WCC).
+PAIR_MIN_BYTES = 1 << 23
+
 
 @dataclasses.dataclass(frozen=True)
 class While:
@@ -155,12 +176,19 @@ def _loops(body: Body, cond: Cond) -> list:
     return out
 
 
-def _apply(step, state: tuple) -> tuple:
-    out = tuple(step(state))
-    if len(out) != len(state):
-        raise ValueError(f"a loop body returned {len(out)} values for a "
+def _apply(step, state: tuple, out: Optional[tuple] = None) -> tuple:
+    res = tuple(step(state) if out is None else step(state, out))
+    if len(res) != len(state):
+        raise ValueError(f"a loop body returned {len(res)} values for a "
                          f"state of {len(state)}")
-    return out
+    return res
+
+
+def into(out: Optional[tuple], index: int) -> Optional[torch.Tensor]:
+    """The buffer a body may write ``state[index]``'s new value into
+    (``out=``): ``out[index]``, or None when the body was given no
+    buffers."""
+    return None if out is None else out[index]
 
 
 def host_while(body: Body, state: Sequence, cond: Cond) -> Loop:
@@ -203,6 +231,15 @@ def host_while(body: Body, state: Sequence, cond: Cond) -> Loop:
                 inner=tuple(counts[1:]))
 
 
+def two_buffers(body: Body, state: Sequence) -> bool:
+    """Whether a device loop runs ``body`` on two sets of buffers: a body
+    of one callable (no nested loop) over a state whose largest tensor
+    holds at least :data:`PAIR_MIN_BYTES`."""
+    largest = max((v.numel() * v.element_size() for v in state
+                   if isinstance(v, torch.Tensor)), default=0)
+    return callable(body) and largest >= PAIR_MIN_BYTES
+
+
 def device_while(body: Body, state: Sequence, cond: Cond, *,
                  cache: Optional[dict] = None, key=None) -> Loop:
     """``jax.lax.while_loop(cond, body, state)`` on the state's device.
@@ -220,11 +257,12 @@ def device_while(body: Body, state: Sequence, cond: Cond, *,
         raise ValueError("a loop's state needs at least one tensor")
     if device.type == "cpu":
         return host_while(body, state, cond)
-    loop = None if cache is None else cache.get(key)
-    if loop is None:
-        loop = DeviceLoop(body, state, cond, device)
-        if cache is not None:
-            cache[key] = loop
+    with _LOCK:  # one capture at a time; a loop cached once
+        loop = None if cache is None else cache.get(key)
+        if loop is None:
+            loop = DeviceLoop(body, state, cond, device)
+            if cache is not None:
+                cache[key] = loop
     return loop.run(state, body, cond)
 
 
@@ -239,14 +277,27 @@ def _call(name: str, *args) -> None:
                            f"{err}")
 
 
+def kernel_nodes(graph: "torch.cuda.CUDAGraph") -> list:
+    """The mangled names of the device functions of a captured graph's
+    kernel nodes (its child graphs' too), one a node."""
+    cap = 1 << 20
+    buf = ctypes.create_string_buffer(cap)
+    used = ctypes.c_longlong(0)
+    _call("loop_graph_kernels", graph.raw_cuda_graph(), buf, cap,
+          ctypes.byref(used))
+    return buf.raw[:used.value].decode().splitlines()
+
+
 class DeviceLoop:
     """A loop captured once into CUDA graphs and instantiated as one graph
     with a conditional WHILE node per loop (:func:`device_while`).
 
-    Holds the state buffers the graph reads and writes, the torch graphs
-    of the captured pieces (whose memory pool holds the bodies'
-    intermediates), the bodies' closures, each loop's counter and limits
-    in device memory, and each piece's launches per body.
+    Holds the state buffers the graph reads and writes (two sets where
+    :func:`two_buffers`), the torch graphs of the captured pieces
+    (whose memory pool holds the bodies' intermediates), the bodies'
+    closures, each loop's counter and limits in device memory, and each
+    piece's launches per body.  :meth:`run` holds a lock: one run at a
+    time.
     """
 
     def __init__(self, body: Body, state: tuple, cond: Cond,
@@ -259,6 +310,8 @@ class DeviceLoop:
                                "available")
         self.device = device
         self.body, self.cond = body, cond
+        #: a body of one callable, the kind :func:`two_buffers` may pair
+        self.one_step = callable(body)
         loops = _loops(body, cond)
         if any(isinstance(c, Residual) for _, c in loops[1:]):
             # a nested loop's counter runs on across the outer rounds
@@ -270,15 +323,21 @@ class DeviceLoop:
                                  "kinds of condition")
         self.buffers = tuple(self._buffer(v, cond_dtype.get(i))
                              for i, v in enumerate(state))
+        #: the second set of buffers (:func:`two_buffers`)
+        self.other: Optional[tuple] = None
         self.counters = torch.zeros(len(loops), dtype=torch.int32,
                                     device=device)
         self.max_iterations = torch.zeros(len(loops), dtype=torch.int32,
                                           device=device)
         self.tolerance = torch.zeros(len(loops), dtype=torch.float32,
                                      device=device)
+        self._limits = None    # the limits last copied to the card
+        self.go = torch.zeros(1, dtype=torch.int32, device=device)
         self.graphs = []       # the captured pieces' torch graphs
-        self.per_body = []     # (loop index, launches per body of a piece)
+        #: (loop index, its bodies -> this piece's runs, launches a run)
+        self.per_body = []
         self.invariant = [True] * len(state)
+        self.lock = threading.Lock()
         self.pool = None
         self._seqs = []
         self._exec = None
@@ -293,7 +352,10 @@ class DeviceLoop:
             top = ctypes.c_void_p()
             _call("loop_seq_new", ctypes.byref(top))
             self._seqs.append(top)
-            self._assemble(top, body, cond, iter(range(len(loops))))
+            if two_buffers(body, state):
+                self._assemble_pair(top, body, cond)
+            else:
+                self._assemble(top, body, cond, iter(range(len(loops))))
             torch.cuda.synchronize(device)
             self.capture_s = time.perf_counter() - t0
             t0 = time.perf_counter()
@@ -313,34 +375,72 @@ class DeviceLoop:
             dtype = torch.float32 if isinstance(v, float) else torch.int32
         return torch.empty((), dtype=dtype, device=self.device)
 
-    def _assemble(self, seq, body, cond, numbers) -> None:
-        """Append to ``seq`` the loop (body, cond) as a WHILE node whose
-        body runs the captured pieces and nested loops."""
-        i = next(numbers)
-        counter = self.counters[i:].data_ptr()
-        value = self.buffers[cond.index]
+    def _scalar(self, buffers: tuple, cond: Cond) -> torch.Tensor:
+        value = buffers[cond.index]
         if value.numel() != 1:
             raise ValueError(f"state[{cond.index}], a condition's scalar, "
                              f"has {value.numel()} elements")
+        return value
+
+    def _while(self, seq, cond: Cond, i: int) -> ctypes.c_void_p:
+        """Append loop ``i``'s WHILE node to ``seq``; returns its body."""
         inner = ctypes.c_void_p()
-        _call("loop_seq_while", seq, cond.kind, counter, value.data_ptr(),
+        _call("loop_seq_while", seq, cond.kind,
+              self.counters[i:].data_ptr(),
+              self._scalar(self.buffers, cond).data_ptr(),
               self.max_iterations[i:].data_ptr(),
               self.tolerance[i:].data_ptr(), ctypes.byref(inner))
         self._seqs.append(inner)
+        return inner
+
+    def _assemble_pair(self, seq, body, cond) -> None:
+        """Append the loop of a body that is one callable: a WHILE node
+        whose round runs the body from the first set of buffers into the
+        second and, under an IF node on the condition, back."""
+        inner = self._while(seq, cond, 0)
+        first = self.buffers
+        out = tuple(torch.empty_like(b) for b in first)
+        _call("loop_seq_child", inner,
+              self._capture(body, first, out, 0, lambda c: (c + 1) // 2)
+              .raw_cuda_graph())
+        second = self.other = tuple(
+            b if inv else o for b, o, inv in zip(first, out, self.invariant))
+        branch = ctypes.c_void_p()
+        _call("loop_seq_if", inner,
+              self._scalar(second, cond).data_ptr(), self.go.data_ptr(),
+              ctypes.byref(branch))
+        self._seqs.append(branch)
+        back = tuple(None if inv else b
+                     for b, inv in zip(first, self.invariant))
+        _call("loop_seq_child", branch,
+              self._capture(body, second, back, 0, lambda c: c // 2)
+              .raw_cuda_graph())
+        _call("loop_seq_close", branch)
+        _call("loop_seq_close", inner)
+
+    def _assemble(self, seq, body, cond, numbers) -> None:
+        """Append to ``seq`` the loop (body, cond) as a WHILE node whose
+        body runs the captured pieces and nested loops, each piece copying
+        its outputs into the one set of buffers."""
+        i = next(numbers)
+        inner = self._while(seq, cond, i)
         for step in _steps(body):
             if isinstance(step, While):
                 self._assemble(inner, step.body, step.cond, numbers)
             else:
-                graph = self._capture(step)
-                self.per_body.append((i, self._last_launches))
+                graph = self._capture(step, self.buffers, None, i,
+                                      lambda c: c)
                 _call("loop_seq_child", inner, graph.raw_cuda_graph())
         _call("loop_seq_close", inner)
 
-    def _capture(self, step) -> "torch.cuda.CUDAGraph":
+    def _capture(self, step, state: tuple, out: Optional[tuple], i: int,
+                 runs) -> "torch.cuda.CUDAGraph":
         """One piece of a body, captured on a stream of its own with its
-        outputs' copies into the state buffers; its kernel launches are
-        recorded, not counted.  A capture that fails (a host read in the
-        body) raises, with the caller's stream current again."""
+        outputs' stores into ``out`` (``state`` itself when None).  Its
+        kernel launches are recorded, not counted, and held against the
+        graph's kernel nodes; ``runs`` maps loop ``i``'s bodies to the
+        piece's.  A capture that fails (a host read in the body) raises,
+        with the caller's stream current again."""
         before = dict(kernels.LAUNCHES)
         graph = torch.cuda.CUDAGraph(keep_graph=True)
         stream = torch.cuda.Stream(self.device)
@@ -350,7 +450,7 @@ class DeviceLoop:
                 graph.capture_begin(pool=self.pool,
                                     capture_error_mode="thread_local")
                 try:
-                    self._store(_apply(step, self.buffers))
+                    self._store(_apply(step, state, out), state, out)
                 except BaseException:
                     try:
                         graph.capture_end()
@@ -359,31 +459,46 @@ class DeviceLoop:
                     raise
                 graph.capture_end()
         finally:
-            self._last_launches = {
-                k: kernels.LAUNCHES[k] - before.get(k, 0)
-                for k in kernels.LAUNCHES}
+            launched = {k: kernels.LAUNCHES[k] - before.get(k, 0)
+                        for k in kernels.LAUNCHES}
             kernels.LAUNCHES.update(before)
         torch.cuda.current_stream(self.device).wait_stream(stream)
         self.pool = graph.pool()
         self.graphs.append(graph)
+        names = kernel_nodes(graph)
+        for name, pattern in kernels.KERNEL_NODES.items():
+            nodes = sum(bool(re.search(pattern, n)) for n in names)
+            if nodes != launched.get(name, 0):
+                raise RuntimeError(
+                    f"device loop: a captured body holds {nodes} {name} "
+                    f"kernel nodes where its wrapper launched "
+                    f"{launched.get(name, 0)}")
+        self.per_body.append((i, runs, launched))
         return graph
 
-    def _store(self, out: tuple) -> None:
-        """Copy a piece's outputs into the state buffers (captured)."""
-        for j, (buf, new) in enumerate(zip(self.buffers, out)):
-            if new is buf:
+    def _store(self, res: tuple, state: tuple, out: Optional[tuple]) -> None:
+        """Copy a piece's outputs that are not already in place into
+        ``out`` (``state`` when None) (captured)."""
+        dst = state if out is None else out
+        for j, (old, buf, new) in enumerate(zip(state, dst, res)):
+            if new is old:
                 continue
             if not isinstance(new, torch.Tensor):
                 raise TypeError(f"a loop body returned "
                                 f"{type(new).__name__} for state[{j}]; "
                                 "tensors only")
-            buf.copy_(new)
+            if buf is None:
+                raise ValueError(f"state[{j}] is changed by one capture of "
+                                 "a loop body and kept by the other")
             self.invariant[j] = False
+            if new is not buf:
+                buf.copy_(new)
 
     def run(self, state: tuple, body: Body, cond: Cond) -> Loop:
         """Copy ``state`` into the buffers, set each loop's limits from
-        ``cond`` and the :class:`While` steps of ``body``, launch, and
-        read the counts and the condition's scalar once."""
+        ``cond`` and the :class:`While` steps of ``body``, launch, queue
+        the result's clones, and read the counts and the condition's
+        scalar once; one run at a time."""
         if len(state) != len(self.buffers):
             raise ValueError(f"a state of {len(state)} for a loop captured "
                              f"with {len(self.buffers)}")
@@ -391,42 +506,56 @@ class DeviceLoop:
         if [type(c) for c in conds] != [type(c) for _, c in
                                         _loops(self.body, self.cond)]:
             raise ValueError("a cached device loop run with other loops")
-        _destroy_retired()
-        with torch.cuda.device(self.device):
-            for buf, v in zip(self.buffers, state):
-                if v is buf:
-                    continue
-                if isinstance(v, torch.Tensor):
-                    buf.copy_(v)
-                else:
-                    buf.fill_(v)
-            limits = [(c.max_iterations, c.tolerance)
-                      if isinstance(c, Residual) else (0, 0.0)
-                      for c in conds]
+        limits = [(c.max_iterations, c.tolerance)
+                  if isinstance(c, Residual) else (0, 0.0) for c in conds]
+        with self.lock:
+            _destroy_retired()
+            with torch.cuda.device(self.device):
+                out, got = self._launch(state, cond, limits)
+        counts = [int(c) for c in got[:-1]]
+        for i, runs, per_run in self.per_body:
+            for name, k in per_run.items():
+                kernels.LAUNCHES[name] += k * runs(counts[i])
+        value = got[-1]
+        if isinstance(cond, Flag):
+            value = int(value)
+        return Loop(state=out, iterations=counts[0], value=value,
+                    host_reads=1, inner=tuple(counts[1:]))
+
+    def _launch(self, state: tuple, cond: Cond, limits: list):
+        for buf, v in zip(self.buffers, state):
+            if v is buf:
+                continue
+            if isinstance(v, torch.Tensor):
+                buf.copy_(v)
+            else:
+                buf.fill_(v)
+        if limits != self._limits:  # a host-to-card copy only when new
             self.max_iterations.copy_(torch.tensor(
                 [m for m, _ in limits], dtype=torch.int32))
             self.tolerance.copy_(torch.tensor(
                 [t for _, t in limits], dtype=torch.float32))
-            self.counters.zero_()
-            stream = torch.cuda.current_stream(self.device)
-            self._events[0].record(stream)
-            _call("loop_exec_launch", self._exec, stream.cuda_stream)
-            LAUNCHES["device_loop"] += 1
-            self._events[1].record(stream)
-            value = self.buffers[cond.index].reshape(1).double()
-            # the one host read: every loop's count and the condition
-            got = torch.cat([self.counters.double(), value]).tolist()
-        counts = [int(c) for c in got[:-1]]
-        for i, per_body in self.per_body:
-            for name, k in per_body.items():
-                kernels.LAUNCHES[name] += k * counts[i]
-        value = got[-1]
-        if isinstance(cond, Flag):
-            value = int(value)
-        out = tuple(v if self.invariant[j] else buf.clone()
-                    for j, (buf, v) in enumerate(zip(self.buffers, state)))
-        return Loop(state=out, iterations=counts[0], value=value,
-                    host_reads=1, inner=tuple(counts[1:]))
+            self._limits = limits
+        self.counters.zero_()
+        stream = torch.cuda.current_stream(self.device)
+        self._events[0].record(stream)
+        _call("loop_exec_launch", self._exec, stream.cuda_stream)
+        LAUNCHES["device_loop"] += 1
+        self._events[1].record(stream)
+        if self.other is None:
+            pick = lambda j: self.buffers[j].clone()  # noqa: E731
+        else:  # an odd count of bodies ends in the second set
+            odd = (self.counters[0] & 1).bool()
+            pick = lambda j: torch.where(  # noqa: E731
+                odd, self.other[j], self.buffers[j])
+        out = tuple(v if self.invariant[j] else pick(j)
+                    for j, v in enumerate(state))
+        value = out[cond.index] if not self.invariant[cond.index] \
+            else self.buffers[cond.index]
+        # the one host read, queued after the clones: every loop's count
+        # and the condition
+        return out, torch.cat([self.counters.double(),
+                               value.reshape(1).double()]).tolist()
 
     def graph_ms(self) -> float:
         """The card's milliseconds from the start of the last run's graph
@@ -442,21 +571,31 @@ class DeviceLoop:
                          getattr(self, "_seqs", []),
                          getattr(self, "graphs", [])))
         try:
-            if not torch.cuda.is_current_stream_capturing():
-                _destroy_retired()
+            _destroy_retired()
         except Exception:  # interpreter shutdown: CUDA is torn down
             pass
 
 
+#: Held while a loop is looked up in its cache and captured, and while
+#: collected loops are destroyed.
+_LOCK = threading.RLock()
 #: Loops collected and not yet destroyed: (exec, sequences, torch graphs).
 _RETIRED: list = []
 
 
 def _destroy_retired() -> None:
-    """Destroy the graphs of collected loops (never during a capture)."""
-    while _RETIRED:
-        exec_, seqs, _ = _RETIRED.pop()
-        if exec_ is not None:
-            _lib("loop_exec_free")(exec_)
-        for seq in reversed(seqs):
-            _lib("loop_seq_free")(seq)
+    """Destroy the graphs of collected loops, unless a capture is under
+    way (in this thread or another)."""
+    if not _LOCK.acquire(blocking=False):
+        return
+    try:
+        if torch.cuda.is_current_stream_capturing():
+            return
+        while _RETIRED:
+            exec_, seqs, _ = _RETIRED.pop()
+            if exec_ is not None:
+                _lib("loop_exec_free")(exec_)
+            for seq in reversed(seqs):
+                _lib("loop_seq_free")(seq)
+    finally:
+        _LOCK.release()

@@ -663,18 +663,29 @@ def _result_of(res):
 
 
 @pytest.mark.requires_cuda
+@pytest.mark.parametrize("pair", [True, False])
 @pytest.mark.parametrize("graph", ["rmat12", "grid64"])
 @pytest.mark.parametrize("path", sorted(LOOP_PATHS))
 def test_device_loop_bit_equal_to_host_loop_on_card(cuda_device, path,
-                                                    graph, monkeypatch):
-    """Each driver's device loop against its host loop on the card: the
-    same bits, the same iterations, one host read, and K1 and K2 launched
-    once an iteration; a second run (from the cache) the same again."""
+                                                    graph, pair,
+                                                    monkeypatch):
+    """Each driver's device loop against its host loop on the card, a
+    one-step body on two sets of buffers (``pair``) or on one: the same
+    bits, the same iterations, one host read, and K1 and K2 launched once
+    an iteration; a second run (from the cache) the same again."""
     import graph_tpu_torch as gtt
+    from graph_tpu_torch.engine import loop
 
+    monkeypatch.setattr(loop, "PAIR_MIN_BYTES", 0 if pair else 1 << 62)
+    paired = []
+    assemble = loop.DeviceLoop._assemble_pair
+    monkeypatch.setattr(loop.DeviceLoop, "_assemble_pair",
+                        lambda self, *a: paired.append(assemble(self, *a)))
     g, start = _loop_graphs(cuda_device)[graph]
     run = LOOP_PATHS[path]
     first = run(gtt, g, start)
+    nested = path in ("sssp_xla", "sssp_frontier")
+    assert len(paired) == (pair and not nested)
     LAUNCHES.update({k: 0 for k in LAUNCHES})
     got = run(gtt, g, start)  # the cached graph, new state copied in
     torch.cuda.synchronize()
@@ -694,33 +705,40 @@ def test_device_loop_bit_equal_to_host_loop_on_card(cuda_device, path,
 
 
 @pytest.mark.requires_cuda
+@pytest.mark.parametrize("pair", [True, False])
 def test_device_loop_new_inputs_and_zero_iterations_on_card(cuda_device,
+                                                            pair,
                                                             monkeypatch):
     """A cached loop run with a new start node and new limits gives the
-    host loop's results; ``max_iterations=0`` returns the initial
-    scores, as ``lax.while_loop`` runs no body."""
+    host loop's results, on two sets of buffers or one;
+    ``max_iterations=0`` returns the initial scores, as
+    ``lax.while_loop`` runs no body."""
     import graph_tpu_torch as gtt
+    from graph_tpu_torch.engine import loop
 
+    monkeypatch.setattr(loop, "PAIR_MIN_BYTES", 0 if pair else 1 << 62)
     g, _ = _loop_graphs(cuda_device)["grid64"]
+    # PageRank ends after an odd and an even count of bodies (the first
+    # and the second set of buffers)
+    cfgs = [{"max_iterations": k, "tolerance": 0.0} for k in (3, 1, 2, 4)]
+    cfgs.append({"max_iterations": 50, "tolerance": 1e-5})
     runs = []
     for start in (0, 2080):
         runs.append(gtt.delta_stepping(g, gtt.DeltaSteppingConfig(start,
                                                                    2.0)))
-    for cfg in ({"max_iterations": 3, "tolerance": 0.0},
-                {"max_iterations": 50, "tolerance": 1e-5}):
+    for cfg in cfgs:
         runs.append(gtt.page_rank(g, gtt.PageRankConfig(**cfg)))
     with monkeypatch.context() as mp:
         _host_loops(mp)
         want = [gtt.delta_stepping(g, gtt.DeltaSteppingConfig(s, 2.0))
                 for s in (0, 2080)]
-        want += [gtt.page_rank(g, gtt.PageRankConfig(**cfg)) for cfg in (
-            {"max_iterations": 3, "tolerance": 0.0},
-            {"max_iterations": 50, "tolerance": 1e-5})]
+        want += [gtt.page_rank(g, gtt.PageRankConfig(**cfg)) for cfg in cfgs]
     for got, ref in zip(runs, want):
         assert _bits_equal(_result_of(got), _result_of(ref))
         assert got.ran_iterations == ref.ran_iterations
     assert not torch.equal(runs[0].distances, runs[1].distances)
-    assert runs[2].ran_iterations == 3 and 3 < runs[3].ran_iterations < 50
+    assert [r.ran_iterations for r in runs[2:6]] == [3, 1, 2, 4]
+    assert 4 < runs[6].ran_iterations < 50
     zero = gtt.page_rank(g, gtt.PageRankConfig(max_iterations=0))
     n = g.node_count
     assert zero.ran_iterations == 0 and zero.host_reads == 1
@@ -756,7 +774,7 @@ def test_device_while_nested_and_raises_on_a_host_read_on_card(cuda_device):
         == (4, (12,))
     assert got.host_reads == 1 < want.host_reads
 
-    def reads(s):
+    def reads(s, out=None):
         x, err = s
         return x + 1, (x.sum() * float(x[0].item())) * 0
     with pytest.raises(RuntimeError):
@@ -766,3 +784,54 @@ def test_device_while_nested_and_raises_on_a_host_read_on_card(cuda_device):
     # the card still runs loops after the failed capture
     again = device_while(body, state, Flag(4))
     assert torch.equal(again.state[0], want.state[0])
+
+
+@pytest.mark.requires_cuda
+@pytest.mark.parametrize("pair", [True, False])
+def test_device_loop_shared_by_two_threads_on_card(cuda_device, pair,
+                                                   monkeypatch):
+    """Two threads run SSSP from two start nodes on one graph at once, one
+    on a stream of its own: they share the graph's cached loop (both
+    first calls race to capture it), and every run gives its own start
+    node's host-loop distances, on two sets of buffers or one."""
+    import threading
+
+    import graph_tpu_torch as gtt
+    from graph_tpu_torch.engine import loop
+
+    monkeypatch.setattr(loop, "PAIR_MIN_BYTES", 0 if pair else 1 << 62)
+    g, _ = _loop_graphs(cuda_device)["grid64"]
+    starts = (0, 2080)
+    with monkeypatch.context() as mp:
+        _host_loops(mp)
+        want = {s: gtt.delta_stepping(g, gtt.DeltaSteppingConfig(s, 2.0))
+                for s in starts}
+    got = {s: [] for s in starts}
+    failed = []
+    gate = threading.Barrier(len(starts))
+
+    def work(s, stream):
+        try:
+            with torch.cuda.stream(stream):
+                gate.wait()
+                for _ in range(20):
+                    got[s].append(gtt.delta_stepping(
+                        g, gtt.DeltaSteppingConfig(s, 2.0)))
+                stream.synchronize()
+        except BaseException as e:  # reported below
+            failed.append(e)
+
+    threads = [threading.Thread(target=work, args=(s, stream)) for s, stream
+               in zip(starts, (torch.cuda.current_stream(cuda_device),
+                               torch.cuda.Stream(cuda_device)))]
+    for t in threads:
+        t.start()
+    for t in threads:
+        t.join()
+    assert not failed, failed
+    for s in starts:
+        assert len(got[s]) == 20
+        for res in got[s]:
+            assert _bits_equal(res.distances, want[s].distances), s
+            assert res.ran_iterations == want[s].ran_iterations
+            assert res.host_reads == 1

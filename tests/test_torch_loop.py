@@ -164,6 +164,20 @@ def test_device_while_on_cpu_runs_the_host_loop():
         device_while(_collatz_body, (1, True), Flag(1))
 
 
+def test_two_buffers_from_the_state_size(monkeypatch):
+    """A device loop pairs buffers for a one-step body whose state's
+    largest tensor holds ``PAIR_MIN_BYTES``; never for a smaller state or
+    a body of pieces (whose loops may nest)."""
+    big = torch.zeros(loop.PAIR_MIN_BYTES // 4, dtype=torch.float32)
+    small = torch.zeros(loop.PAIR_MIN_BYTES // 4 - 1, dtype=torch.float32)
+    assert loop.two_buffers(_collatz_body, (big, True))
+    assert not loop.two_buffers(_collatz_body, (small, 1.0, big[:8]))
+    assert not loop.two_buffers((_collatz_body,), (big, True))
+    assert not loop.two_buffers(While(_collatz_body, Flag(1)), (big, True))
+    monkeypatch.setattr(loop, "PAIR_MIN_BYTES", 0)
+    assert loop.two_buffers(_collatz_body, (torch.zeros(1), True))
+
+
 def test_drivers_on_cuda_raise_without_a_card(monkeypatch):
     """A driver asked for the card on a machine without one raises (torch
     built for the CPU only asserts); it does not run on the CPU."""
