@@ -96,9 +96,11 @@ RMAT is generated, then the two on a stand-in for the TPU plan's routed
 sections of the scale-22 plan (routed on the host by a thread of its own
 while the other paths run); each variant exact against its plain
 version, ``full`` equal to the port's K2 on every destination.  One
-``graph_tpu_torch.profile`` trace of the PageRank run, as the device loop
-and as its host loop, gives the device's busy share and the kernels that
-took the most time.
+trace of the PageRank run (``benchmark.trace.traced``), as the device
+loop and as its host loop, gives the device's busy share, the kernels
+that took the most time and the share of K1 and K2 launches the trace
+reported; the device loop's ``loop.run`` span gives the graph's CUDA-event
+time and its launches.
 It prints one JSON line per phase; the line before the last lists the
 kernels, with each design's facts (K2's tile, K1's window and the share
 of slots it serves, a probe's window or depth), and the last line is
@@ -2048,7 +2050,7 @@ def k1_probes_phase(dev, errs):
     the library yardstick (timed here, on the case's inputs).  Returns
     the launches by size, the table rows' cases and the phase's line
     (emitted later, beside K1's own rate at each window)."""
-    from graph_tpu_torch import profile
+    from benchmark.trace import traced
     from graph_tpu_torch.probes import (
         BLK, K1_NBLK, NBLK, k1_lanemap, k1_rowmatch, k1_sublane,
         kernels as p)
@@ -2104,18 +2106,17 @@ def k1_probes_phase(dev, errs):
           f"k1_probes: table cases {sorted(cases)}")
     # at the scripts' size a call's time is the host's (wrapper, ctypes,
     # launch): a traced pass gives each kernel's device time a launch
-    with profile.trace(os.path.join(ROOT, ".cache", "profile")) as log_dir:
+    with traced() as box:
         drive_probes(NBLK, reps=5)
-    busy = profile.device_busy(profile.newest_trace(log_dir))
+    durations = box[0].durations
     device_us = {}
     for name in p.LAUNCHES:
         kernel = f"::{name.removeprefix('probe_')}_kernel("
-        hits = [(us, busy["device_calls_by_name"][k])
-                for k, us in busy["device_us_by_name"].items() if kernel in k]
-        calls = sum(c for _, c in hits)
-        per_launch = sum(us for us, _ in hits) / calls if calls else None
-        device_us[name] = {"launches_traced": calls,
-                           "device_us_per_launch": per_launch}
+        hits = [d for k, ds in durations.items() if kernel in k for d in ds]
+        device_us[name] = {
+            "launches_traced": len(hits),
+            "device_us_per_launch": (sum(hits) / len(hits) * 1e6
+                                     if hits else None)}
     out[f"{NBLK * BLK}_slots"]["traced"] = device_us
     return launches, cases, out
 
@@ -2745,17 +2746,19 @@ def library_call(label, v, sides, layout, stand_in, z):
 
 
 def profile_phase(gtt, kernels, graph, cfg, card):
-    """``graph_tpu_torch.profile`` traces of the 20-iteration PageRank on
+    """Traces (``benchmark.trace.traced``) of the 20-iteration PageRank on
     the scale-22 plan, once as the device loop and once as its host loop
     (``host_loops``), each with K1 and K2 launched once an iteration by
-    the wrappers' counts.  The host loop annotates each iteration, and
-    its trace must hold 20 annotations; the device loop is one graph
-    launch.  CUPTI does not report every kernel of either run (19 K1
-    events of 20 at this size), so the kernel events in each run are
-    recorded, not held to the launches.  For each: the trace's size, the
-    kernels that took the most device time, and the device's busy share
-    over the run and the trace (a lower bound: the kernels CUPTI missed
-    count as idle)."""
+    the wrappers' counts.  The host loop's iterations are 20
+    ``page_rank.iteration`` spans; the device loop is one graph launch,
+    one ``loop.run`` span whose counters hold the graph's CUDA-event time,
+    its bodies and its launches.  CUPTI does not report every kernel of
+    either run, least of all inside the conditional graph, so the kernel
+    events are recorded beside the launches (``kernel_events_share``),
+    not held to them.  For each: the kernels that took the most device
+    time and the device's busy share over the run (a lower bound: the
+    kernels CUPTI missed count as idle)."""
+    from benchmark.trace import traced
     from graph_tpu_torch import profile
     from graph_tpu_torch.algos.pagerank import ITERATION
     from graph_tpu_torch.engine import loop
@@ -2765,52 +2768,52 @@ def profile_phase(gtt, kernels, graph, cfg, card):
     for name in ("device_loop", "host_loop"):
         kernels.reset_launches()
         loop.reset_launches()
+        profile.spans(clear=True)
         with host_loops() if name == "host_loop" else \
                 contextlib.nullcontext():
-            with profile.trace(os.path.join(ROOT, ".cache", "profile")) \
-                    as log_dir:
-                with profile.annotate("pagerank_run"):
-                    res = gtt.page_rank(graph, cfg)
+            with traced() as box:
+                res = gtt.page_rank(graph, cfg)
         _sync()
+        tr = box[0]
+        spans = profile.spans(clear=True)
         launches = {**kernels.LAUNCHES, **loop.LAUNCHES}
-        path = profile.newest_trace(log_dir)
-        with open(path) as f:
-            annotated = sum(e.get("name") == ITERATION
-                            and e.get("cat") == "user_annotation"
-                            for e in json.load(f)["traceEvents"])
-        run = profile.device_busy(path, region="pagerank_run")
-        whole = profile.device_busy(path)
-        counted, in_trace = ({kernel: sum(
-            c for k, c in busy["device_calls_by_name"].items() if kernel in k)
-            for kernel in ("k1_gather_kernel", "k2_tile_kernel")}
-            for busy in (run, whole))
+        annotated = sum(s["name"] == ITERATION for s in spans)
+        runs = [s["counters"] for s in spans if s["name"] == "loop.run"]
+        events = {name: sum(len(ds) for k, ds in tr.durations.items()
+                            if kernel in k)
+                  for name, kernel in (("k1_gather", "k1_gather_kernel"),
+                                       ("k2_reduce", "k2_tile_kernel"))}
         check(res.ran_iterations == ITERS and all(
             launches[k] == ITERS for k in PATH_KERNELS["pagerank"]),
             f"profile ({name}): {launches} launches in "
             f"{res.ran_iterations} iterations")
+        check(len(runs) == 1 and runs[0]["bodies"] == [ITERS] and all(
+            runs[0]["launches"].get(k) == ITERS
+            for k in PATH_KERNELS["pagerank"]),
+            f"profile ({name}): loop.run spans {runs}")
         if name == "host_loop":
             check(annotated == ITERS,
                   f"profile (host loop): {annotated} annotated iterations")
         else:
-            check(launches["device_loop"] == 1 and res.host_reads == 1,
+            check(launches["device_loop"] == 1 and res.host_reads == 1
+                  and runs[0]["device_ms"] > 0,
                   f"profile (device loop): {launches['device_loop']} graph"
-                  f" launches, {res.host_reads} host reads")
-        check(run["busy_us"] > 0, "profile: no device activity in the trace")
+                  f" launches, {res.host_reads} host reads, {runs}")
+        check(tr.busy_s > 0, "profile: no device activity in the trace")
+        ops = sorted(((k, sum(ds) * 1e6) for k, ds in tr.durations.items()),
+                     key=lambda kv: -kv[1])
         out[name] = {
-            "trace_bytes": os.path.getsize(path),
             "iterations": res.ran_iterations, "host_reads": res.host_reads,
             "launches": {k: v for k, v in launches.items() if v},
-            "annotated_iterations": annotated, "kernel_events": counted,
-            "kernel_events_in_trace": in_trace,
-            "run_s": res.micros / 1e6, "run_window_us": run["window_us"],
-            "run_busy_us": run["busy_us"],
-            "run_busy_share": run["busy_share"],
-            "trace_window_us": whole["window_us"],
-            "trace_busy_share": whole["busy_share"],
-            "top_device_us": dict(list(
-                run["device_us_by_name"].items())[:8]),
+            "annotated_iterations": annotated, "loop_run": runs[0],
+            "kernel_events": events,
+            "kernel_events_share": {k: v / ITERS for k, v in events.items()},
+            "run_s": res.micros / 1e6, "run_window_us": tr.window_s * 1e6,
+            "run_busy_us": tr.busy_s * 1e6,
+            "run_busy_share": tr.busy_s / tr.window_s,
+            "top_device_us": dict(ops[:8]),
             "port_kernels_seen": sorted(
-                k for k in run["device_us_by_name"]
+                k for k in tr.durations
                 if "k1_" in k or "k2_" in k or "loop_cond" in k)}
     emit({"phase": "profile", "card": card, **out})
 

@@ -46,14 +46,14 @@ from typing import Callable, Optional, Tuple
 import numpy as np
 import torch
 
-from graph_tpu_torch.device import synchronize
+from graph_tpu_torch import profile
+from graph_tpu_torch.device import synchronize, to_host
 from graph_tpu_torch.engine.engine import EdgeEngine, engine_for
 from graph_tpu_torch.engine.loop import (
     Residual, device_while, host_while, into)
 from graph_tpu_torch.graph.csr import DirectedCsrGraph
 from graph_tpu_torch.ops.segment import (
     segment_sum_fixedpoint, segment_sum_sorted)
-from graph_tpu_torch.profile import annotate
 
 logger = logging.getLogger(__name__)
 
@@ -97,7 +97,7 @@ class PageRankResult:
     host_reads: int = 0
 
     def scores_np(self) -> np.ndarray:
-        return self.scores.cpu().numpy()
+        return to_host(self.scores)
 
 
 def page_rank(graph: DirectedCsrGraph,
@@ -217,7 +217,7 @@ def _jacobi(sums: Callable[[torch.Tensor], torch.Tensor],
         # the body: the same bits as graph_tpu's carried out_scores, and
         # no second vector carried from round to round
         scores, _, inv = state
-        with annotate(ITERATION):
+        with profile.annotate(ITERATION):
             new_scores = _update(sums(scores * inv), base, d, into(out, 0))
             err = torch.sum(torch.abs(new_scores - scores))
             return new_scores, err, inv
@@ -357,15 +357,19 @@ def _run(graph: DirectedCsrGraph, config: PageRankConfig, engine: str,
                          graph.csr_in.offsets, engine)
         to_internal = to_public = lambda v: v  # noqa: E731
         loops = engine_for(graph, "loops", dict)
-    start = time.perf_counter()
-    # the captured loop bakes in the damping factor; limits are per run
-    scores, it, err, reads = _jacobi(
-        sums, to_internal(_inv_outdeg(graph.out_degrees())),
-        int(config.max_iterations), config.tolerance, config.damping_factor,
-        log, cache=loops,
-        key=("page_rank", engine, float(np.float32(config.damping_factor))))
-    scores = to_public(scores)
-    synchronize(scores.device)
-    micros = int((time.perf_counter() - start) * 1e6)
+    with profile.span("page_rank.run") as sp:
+        start = time.perf_counter()
+        # the captured loop bakes in the damping factor; limits are per run
+        scores, it, err, reads = _jacobi(
+            sums, to_internal(_inv_outdeg(graph.out_degrees())),
+            int(config.max_iterations), config.tolerance,
+            config.damping_factor, log, cache=loops,
+            key=("page_rank", engine,
+                 float(np.float32(config.damping_factor))))
+        scores = to_public(scores)
+        synchronize(scores.device)
+        micros = int((time.perf_counter() - start) * 1e6)
+        if sp:
+            sp.count(rounds=it)
     return PageRankResult(scores=scores, ran_iterations=it, error=err,
                           micros=micros, host_reads=reads)

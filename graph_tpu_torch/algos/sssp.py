@@ -38,8 +38,9 @@ from typing import Optional, Tuple
 import numpy as np
 import torch
 
+from graph_tpu_torch import profile
 from graph_tpu_torch.algos.pagerank import _default_mesh, _rowblock_route
-from graph_tpu_torch.device import synchronize
+from graph_tpu_torch.device import synchronize, to_host
 from graph_tpu_torch.engine.engine import EdgeEngine, engine_for
 from graph_tpu_torch.engine.kernels import INF as _PLAN_INF
 from graph_tpu_torch.engine.loop import Flag, While, device_while, into
@@ -82,7 +83,7 @@ class SsspResult:
     host_reads: int = 0
 
     def distances_np(self) -> np.ndarray:
-        return self.distances.cpu().numpy()
+        return to_host(self.distances)
 
 
 def delta_stepping(graph: DirectedCsrGraph,
@@ -107,13 +108,16 @@ def delta_stepping(graph: DirectedCsrGraph,
     if config.engine == "frontier":
         return _sssp_frontier(graph, config)
     if config.engine == "xla":
-        start = time.perf_counter()
-        dist, steps, reads = _delta_stepping_device(
-            graph.csr_in.sources, graph.csr_in.targets,
-            graph.csr_in.values.to(torch.float32), s, config.delta,
-            graph.node_count, cache=engine_for(graph, "loops", dict))
-        synchronize(dist.device)
-        micros = int((time.perf_counter() - start) * 1e6)
+        with profile.span("sssp.run") as sp:
+            start = time.perf_counter()
+            dist, steps, reads = _delta_stepping_device(
+                graph.csr_in.sources, graph.csr_in.targets,
+                graph.csr_in.values.to(torch.float32), s, config.delta,
+                graph.node_count, cache=engine_for(graph, "loops", dict))
+            synchronize(dist.device)
+            micros = int((time.perf_counter() - start) * 1e6)
+            if sp:
+                sp.count(rounds=steps)
         return SsspResult(distances=dist, micros=micros,
                           ran_iterations=steps, host_reads=reads)
     return _sssp_plan(graph, config)
@@ -296,12 +300,15 @@ def _frontier_adjacency(graph: DirectedCsrGraph):
 def _sssp_frontier(graph: DirectedCsrGraph, config) -> SsspResult:
     """:func:`_sssp_frontier_device` over the graph's padded adjacency."""
     adj_t, adj_w = _frontier_adjacency(graph)
-    start = time.perf_counter()
-    dist, steps, reads = _sssp_frontier_device(
-        adj_t, adj_w, int(config.start_node), config.delta,
-        cap=_FRONTIER_CAP, cache=engine_for(graph, "loops", dict))
-    synchronize(dist.device)
-    micros = int((time.perf_counter() - start) * 1e6)
+    with profile.span("sssp.run") as sp:
+        start = time.perf_counter()
+        dist, steps, reads = _sssp_frontier_device(
+            adj_t, adj_w, int(config.start_node), config.delta,
+            cap=_FRONTIER_CAP, cache=engine_for(graph, "loops", dict))
+        synchronize(dist.device)
+        micros = int((time.perf_counter() - start) * 1e6)
+        if sp:
+            sp.count(rounds=steps)
     return SsspResult(distances=dist, micros=micros, ran_iterations=steps,
                       host_reads=reads)
 
@@ -321,11 +328,6 @@ def _sssp_plan(graph: DirectedCsrGraph, config) -> SsspResult:
     n = graph.node_count
     s = int(config.start_node)
     eng = _weighted_engine(graph)
-    start = time.perf_counter()
-    if eng.perm is not None:  # iterate in the plan's internal order
-        s = eng.perm[s : s + 1]
-    dist = torch.full((n,), _PLAN_INF, dtype=torch.float32, device=eng.device)
-    dist[s] = 0.0
 
     def body(state, out=None):
         dist, _ = state
@@ -333,11 +335,20 @@ def _sssp_plan(graph: DirectedCsrGraph, config) -> SsspResult:
                            out=into(out, 0))
         return nd, (nd != dist).any()
 
-    run = device_while(body, (dist, True), Flag(1), cache=eng.loops,
-                       key="sssp")
-    dist = eng.to_public(run.state[0])
-    synchronize(dist.device)
-    micros = int((time.perf_counter() - start) * 1e6)
+    with profile.span("sssp.run") as sp:
+        start = time.perf_counter()
+        if eng.perm is not None:  # iterate in the plan's internal order
+            s = eng.perm[s : s + 1]
+        dist = torch.full((n,), _PLAN_INF, dtype=torch.float32,
+                          device=eng.device)
+        dist[s] = 0.0
+        run = device_while(body, (dist, True), Flag(1), cache=eng.loops,
+                           key="sssp")
+        dist = eng.to_public(run.state[0])
+        synchronize(dist.device)
+        micros = int((time.perf_counter() - start) * 1e6)
+        if sp:
+            sp.count(rounds=run.iterations)
     # unreached sentinel: the reference keeps f32::MAX (sssp.rs:12)
     dist = dist.masked_fill(dist >= _PLAN_INF, float(INF))
     return SsspResult(distances=dist, micros=micros,

@@ -41,8 +41,9 @@ from typing import Optional, Tuple, Union
 import numpy as np
 import torch
 
+from graph_tpu_torch import profile
 from graph_tpu_torch.algos.pagerank import _default_mesh, _rowblock_route
-from graph_tpu_torch.device import run_device, synchronize
+from graph_tpu_torch.device import run_device, synchronize, to_host
 from graph_tpu_torch.dtypes import check_node_count_fits
 from graph_tpu_torch.engine.engine import EdgeEngine, engine_for
 from graph_tpu_torch.engine.loop import Flag, device_while, into
@@ -85,7 +86,7 @@ class WccResult:
         return int(self.components[node])
 
     def components_np(self) -> np.ndarray:
-        return self.components.cpu().numpy()
+        return to_host(self.components)
 
 
 def wcc(graph: Union[DirectedCsrGraph, UndirectedCsrGraph],
@@ -196,8 +197,6 @@ def _wcc_plan(graph, device=None) -> WccResult:
     n = graph.node_count
     check_node_count_fits(n, np.int32)  # labels are int32 node ids
     eng = _sym_engine(graph, device)
-    start = time.perf_counter()
-    comp = torch.arange(n, dtype=torch.int32, device=eng.device)
 
     def body(state, out=None):
         comp, _ = state
@@ -206,11 +205,16 @@ def _wcc_plan(graph, device=None) -> WccResult:
         new = torch.index_select(new, 0, new, out=into(out, 0))
         return new, (new != comp).any()
 
-    run = device_while(body, (comp, True), Flag(1), cache=eng.loops,
-                       key="wcc")
-    comp = run.state[0]
-    synchronize(comp.device)
-    micros = int((time.perf_counter() - start) * 1e6)
+    with profile.span("wcc.run") as sp:
+        start = time.perf_counter()
+        comp = torch.arange(n, dtype=torch.int32, device=eng.device)
+        run = device_while(body, (comp, True), Flag(1), cache=eng.loops,
+                           key="wcc")
+        comp = run.state[0]
+        synchronize(comp.device)
+        micros = int((time.perf_counter() - start) * 1e6)
+        if sp:
+            sp.count(rounds=run.iterations)
     ids = (graph.csr.targets if isinstance(graph, UndirectedCsrGraph)
            else graph.csr_out.targets)
     return WccResult(components=comp.to(ids.dtype),
@@ -259,10 +263,14 @@ def _wcc_xla(graph, device=None) -> WccResult:
         fwd, bwd = graph.csr_out, graph.csr_in
     arrays = [a.to(device) for a in (fwd.sources, fwd.targets,
                                      bwd.sources, bwd.targets)]
-    start = time.perf_counter()
-    comp, iters, reads = _wcc_device(
-        *arrays, graph.node_count, cache=engine_for(graph, "loops", dict))
-    synchronize(comp.device)
-    micros = int((time.perf_counter() - start) * 1e6)
+    with profile.span("wcc.run") as sp:
+        start = time.perf_counter()
+        comp, iters, reads = _wcc_device(
+            *arrays, graph.node_count,
+            cache=engine_for(graph, "loops", dict))
+        synchronize(comp.device)
+        micros = int((time.perf_counter() - start) * 1e6)
+        if sp:
+            sp.count(rounds=iters)
     return WccResult(components=comp, ran_iterations=iters, micros=micros,
                      host_reads=reads)

@@ -10,6 +10,10 @@ Graphs live on ``device``: every constructor and ``load`` takes
 (:func:`graph_tpu_torch.device.resolve_device`); pass ``device="cpu"`` to
 run on the CPU.  Algorithms run where the graph lies.
 
+Every algorithm call is an ``api.<method>`` span and every copy of an
+answer to the host a ``result.to_host`` span (counter ``bytes``), and
+``from_numpy`` a ``graph.build`` span (:mod:`graph_tpu_torch.profile`).
+
 Zero-copy semantics: neighbor queries return read-only numpy *views* into
 one cached host copy of each CSR's offsets and targets (the analog of
 mate's ``SharedSlice`` aliasing Rust memory, crates/mate/src/graphs/
@@ -44,11 +48,12 @@ import time
 
 import numpy as np
 
+from graph_tpu_torch import profile
 from graph_tpu_torch.algos.pagerank import PageRankConfig, page_rank
 from graph_tpu_torch.algos.sssp import DeltaSteppingConfig, delta_stepping
 from graph_tpu_torch.algos.triangle_count import global_triangle_count
 from graph_tpu_torch.algos.wcc import WccConfig, wcc
-from graph_tpu_torch.device import resolve_device
+from graph_tpu_torch.device import resolve_device, to_host
 from graph_tpu_torch.graph import ops as _ops
 from graph_tpu_torch.graph.build import build_directed, build_undirected
 from graph_tpu_torch.graph.csr import CsrLayout
@@ -89,7 +94,7 @@ class PageRankResult:
 
     def scores(self) -> np.ndarray:
         if self._scores is None:
-            self._scores = self._device_scores.cpu().numpy()
+            self._scores = to_host(self._device_scores)
         return self._scores
 
     def __repr__(self):
@@ -109,7 +114,7 @@ class WccResult:
 
     def components(self) -> np.ndarray:
         if self._components is None:
-            self._components = self._device_components.cpu().numpy()
+            self._components = to_host(self._device_components)
         return self._components
 
     def __repr__(self):
@@ -134,7 +139,7 @@ class SsspResult:
     """Server sssp analog (no mate class; the server exposes it)."""
 
     def __init__(self, inner):
-        self._distances = inner.distances.cpu().numpy()
+        self._distances = to_host(inner.distances)
         self.micros = inner.micros
 
     def distances(self) -> np.ndarray:
@@ -158,7 +163,8 @@ def _edge_array(arr) -> np.ndarray:
     arr = np.asarray(arr)
     if arr.ndim != 2 or arr.shape[1] != 2:
         raise ValueError(f"expected (m, 2) edge array, got {arr.shape}")
-    return arr.astype(np.int64)
+    with profile.span("graph.build.host"):
+        return arr.astype(np.int64)
 
 
 def _wcc_config(chunk_size, neighbor_rounds, sampling_size) -> WccConfig:
@@ -221,10 +227,11 @@ class Graph(_GraphBase):
     @staticmethod
     def from_numpy(arr: np.ndarray, layout=Layout.Unsorted,
                    device=None) -> "Graph":
-        arr = _edge_array(arr)
-        return Graph(build_undirected(arr[:, 0], arr[:, 1], layout=layout,
-                                      id_dtype=ID_DTYPE,
-                                      device=resolve_device(device)))
+        with profile.span("graph.build"):
+            arr = _edge_array(arr)
+            return Graph(build_undirected(
+                arr[:, 0], arr[:, 1], layout=layout, id_dtype=ID_DTYPE,
+                device=resolve_device(device)))
 
     @staticmethod
     def from_pandas(df, layout=Layout.Unsorted, device=None) -> "Graph":
@@ -245,12 +252,14 @@ class Graph(_GraphBase):
         self._host_cache.clear()
 
     def global_triangle_count(self) -> TriangleCountResult:
-        return TriangleCountResult(global_triangle_count(self._g))
+        with profile.span("api.global_triangle_count"):
+            return TriangleCountResult(global_triangle_count(self._g))
 
     def wcc(self, *, chunk_size=None, neighbor_rounds=None,
             sampling_size=None) -> WccResult:
-        return WccResult(wcc(self._g, _wcc_config(
-            chunk_size, neighbor_rounds, sampling_size)))
+        with profile.span("api.wcc"):
+            return WccResult(wcc(self._g, _wcc_config(
+                chunk_size, neighbor_rounds, sampling_size)))
 
     def __repr__(self):
         return (
@@ -275,10 +284,11 @@ class DiGraph(_GraphBase):
     @staticmethod
     def from_numpy(arr: np.ndarray, layout=Layout.Unsorted,
                    device=None) -> "DiGraph":
-        arr = _edge_array(arr)
-        return DiGraph(build_directed(arr[:, 0], arr[:, 1], layout=layout,
-                                      id_dtype=ID_DTYPE,
-                                      device=resolve_device(device)))
+        with profile.span("graph.build"):
+            arr = _edge_array(arr)
+            return DiGraph(build_directed(
+                arr[:, 0], arr[:, 1], layout=layout, id_dtype=ID_DTYPE,
+                device=resolve_device(device)))
 
     @staticmethod
     def from_pandas(df, layout=Layout.Unsorted, device=None) -> "DiGraph":
@@ -315,16 +325,19 @@ class DiGraph(_GraphBase):
             damping_factor=(damping_factor if damping_factor is not None
                             else PageRankConfig.DEFAULT_DAMPING_FACTOR),
         )
-        return PageRankResult(page_rank(self._g, cfg))
+        with profile.span("api.page_rank"):
+            return PageRankResult(page_rank(self._g, cfg))
 
     def wcc(self, *, chunk_size=None, neighbor_rounds=None,
             sampling_size=None) -> WccResult:
-        return WccResult(wcc(self._g, _wcc_config(
-            chunk_size, neighbor_rounds, sampling_size)))
+        with profile.span("api.wcc"):
+            return WccResult(wcc(self._g, _wcc_config(
+                chunk_size, neighbor_rounds, sampling_size)))
 
     def delta_stepping(self, *, start_node: int, delta: float) -> SsspResult:
-        return SsspResult(delta_stepping(
-            self._g, DeltaSteppingConfig(int(start_node), float(delta))))
+        with profile.span("api.delta_stepping"):
+            return SsspResult(delta_stepping(
+                self._g, DeltaSteppingConfig(int(start_node), float(delta))))
 
     def __repr__(self):
         return (

@@ -10,7 +10,10 @@ unless the caller names another device or the graph is host-resident
 
 from __future__ import annotations
 
+import numpy as np
 import torch
+
+from graph_tpu_torch import profile
 
 
 def resolve_device(device=None) -> torch.device:
@@ -40,3 +43,13 @@ def synchronize(device: torch.device) -> None:
     """Wait for the card's queued work (a host timer's end point)."""
     if device.type == "cuda":
         torch.cuda.synchronize(device)
+
+
+def to_host(t: torch.Tensor) -> np.ndarray:
+    """An answer copied to a host array: a ``result.to_host`` span
+    (:mod:`graph_tpu_torch.profile`) with counter ``bytes``."""
+    with profile.span("result.to_host") as sp:
+        out = t.cpu().numpy()
+        if sp:
+            sp.count(bytes=out.nbytes)
+    return out

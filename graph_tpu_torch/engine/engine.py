@@ -29,6 +29,7 @@ import weakref
 import numpy as np
 import torch
 
+from graph_tpu_torch import profile
 from graph_tpu_torch.engine.kernels import (
     FIXED_BITS, K1_WINDOW, k1_gather, k1_gather_weighted, k2_reduce,
     k2_reduce_min, k2_tile_cuts)
@@ -72,10 +73,12 @@ class EdgeEngine:
               device=None) -> "EdgeEngine":
         """Build (or load from the plan cache — ``cache_dir`` or
         $GRAPH_TPU_TORCH_PLAN_CACHE) the engine for an edge list, with
-        optional edge ``values``."""
-        return cls(load_or_build_plan(src, dst, n, cache_dir=cache_dir,
-                                      relabel=relabel, device=device,
-                                      values=values))
+        optional edge ``values``: an ``engine.build`` span whose counter
+        ``plan_cache`` is ``hit``, ``miss`` or ``off``."""
+        with profile.span("engine.build"):
+            return cls(load_or_build_plan(src, dst, n, cache_dir=cache_dir,
+                                          relabel=relabel, device=device,
+                                          values=values))
 
     def to_internal(self, x: torch.Tensor) -> torch.Tensor:
         """x in API node order -> the plan's internal order."""

@@ -50,6 +50,13 @@ per-body launches, holds them against the kernel nodes of each captured
 graph (``kernels.KERNEL_NODES``), and, after each run, adds to
 ``graph_tpu_torch.engine.kernels.LAUNCHES`` the per-body counts times the
 bodies the device reports; capture itself counts nothing.
+
+While :func:`graph_tpu_torch.profile.on`, a run is a ``loop.run`` span
+with counters ``bodies`` (each loop's count, outer first), ``launches``
+(the kernel launches it added), ``host_reads`` and, on the card,
+``device_ms`` (the graph's CUDA-event time, read after the run's one
+host read) and ``cached``; a capture is a ``loop.capture`` and a
+``loop.instantiate`` span.
 """
 
 from __future__ import annotations
@@ -64,6 +71,7 @@ from typing import Callable, Optional, Sequence, Tuple, Union
 import numpy as np
 import torch
 
+from graph_tpu_torch import profile
 from graph_tpu_torch.engine import _build, kernels
 
 Body = Union[Callable, Sequence]
@@ -223,10 +231,16 @@ def host_while(body: Body, state: Sequence, cond: Cond) -> Loop:
         counts[index[id(body)]] += it
         return state, it, value
 
-    state, it, value = run(body, tuple(state), cond)
-    if value is None:  # the residual was never read: read it once
-        value = state[cond.index].item()
-        reads += 1
+    with profile.span("loop.run") as sp:
+        before = dict(kernels.LAUNCHES) if sp else None
+        state, it, value = run(body, tuple(state), cond)
+        if value is None:  # the residual was never read: read it once
+            value = state[cond.index].item()
+            reads += 1
+        if sp:
+            sp.count(bodies=[it] + counts[1:], host_reads=reads, launches={
+                k: v - before.get(k, 0) for k, v in kernels.LAUNCHES.items()
+                if v != before.get(k, 0)})
     return Loop(state=state, iterations=it, value=value, host_reads=reads,
                 inner=tuple(counts[1:]))
 
@@ -259,11 +273,12 @@ def device_while(body: Body, state: Sequence, cond: Cond, *,
         return host_while(body, state, cond)
     with _LOCK:  # one capture at a time; a loop cached once
         loop = None if cache is None else cache.get(key)
-        if loop is None:
+        cached = loop is not None
+        if not cached:
             loop = DeviceLoop(body, state, cond, device)
             if cache is not None:
                 cache[key] = loop
-    return loop.run(state, body, cond)
+    return loop.run(state, body, cond, cached=cached)
 
 
 def _lib(name: str):
@@ -345,22 +360,25 @@ class DeviceLoop:
         #: CUDA events around the last launch (:meth:`graph_ms`)
         self._events = (torch.cuda.Event(enable_timing=True),
                         torch.cuda.Event(enable_timing=True))
-        t0 = time.perf_counter()
-        _destroy_retired()
-        torch.cuda.synchronize(device)
-        with torch.cuda.device(device):
-            top = ctypes.c_void_p()
-            _call("loop_seq_new", ctypes.byref(top))
-            self._seqs.append(top)
-            if two_buffers(body, state):
-                self._assemble_pair(top, body, cond)
-            else:
-                self._assemble(top, body, cond, iter(range(len(loops))))
+        with profile.span("loop.capture"):
+            t0 = time.perf_counter()
+            _destroy_retired()
             torch.cuda.synchronize(device)
+            with torch.cuda.device(device):
+                top = ctypes.c_void_p()
+                _call("loop_seq_new", ctypes.byref(top))
+                self._seqs.append(top)
+                if two_buffers(body, state):
+                    self._assemble_pair(top, body, cond)
+                else:
+                    self._assemble(top, body, cond, iter(range(len(loops))))
+                torch.cuda.synchronize(device)
             self.capture_s = time.perf_counter() - t0
+        with profile.span("loop.instantiate"):
             t0 = time.perf_counter()
             exec_ = ctypes.c_void_p()
-            _call("loop_seq_instantiate", top, ctypes.byref(exec_))
+            with torch.cuda.device(device):
+                _call("loop_seq_instantiate", top, ctypes.byref(exec_))
             self._exec = exec_
             self.instantiate_s = time.perf_counter() - t0
 
@@ -494,11 +512,13 @@ class DeviceLoop:
             if new is not buf:
                 buf.copy_(new)
 
-    def run(self, state: tuple, body: Body, cond: Cond) -> Loop:
+    def run(self, state: tuple, body: Body, cond: Cond, *,
+            cached: bool = True) -> Loop:
         """Copy ``state`` into the buffers, set each loop's limits from
         ``cond`` and the :class:`While` steps of ``body``, launch, queue
         the result's clones, and read the counts and the condition's
-        scalar once; one run at a time."""
+        scalar once; one run at a time.  ``cached``: whether the loop came
+        from a cache (the ``loop.run`` span's counter)."""
         if len(state) != len(self.buffers):
             raise ValueError(f"a state of {len(state)} for a loop captured "
                              f"with {len(self.buffers)}")
@@ -510,12 +530,21 @@ class DeviceLoop:
                   if isinstance(c, Residual) else (0, 0.0) for c in conds]
         with self.lock:
             _destroy_retired()
-            with torch.cuda.device(self.device):
-                out, got = self._launch(state, cond, limits)
-        counts = [int(c) for c in got[:-1]]
-        for i, runs, per_run in self.per_body:
-            for name, k in per_run.items():
-                kernels.LAUNCHES[name] += k * runs(counts[i])
+            with profile.span("loop.run") as sp:
+                with torch.cuda.device(self.device):
+                    out, got = self._launch(state, cond, limits)
+                counts = [int(c) for c in got[:-1]]
+                launched: dict = {}
+                for i, runs, per_run in self.per_body:
+                    for name, k in per_run.items():
+                        launched[name] = (launched.get(name, 0)
+                                          + k * runs(counts[i]))
+                if sp:  # the read above has waited for the graph
+                    sp.count(device_ms=self.graph_ms(), cached=cached,
+                             bodies=counts, host_reads=1, launches={
+                                 k: v for k, v in launched.items() if v})
+        for name, k in launched.items():
+            kernels.LAUNCHES[name] += k
         value = got[-1]
         if isinstance(cond, Flag):
             value = int(value)

@@ -38,6 +38,7 @@ from typing import Optional
 import numpy as np
 import torch
 
+from graph_tpu_torch import profile
 from graph_tpu_torch.device import resolve_device
 
 logger = logging.getLogger(__name__)
@@ -261,10 +262,14 @@ def load_or_build_plan(src, dst, n: int, cache_dir: Optional[str] = None,
 
     ``cache_dir`` (or $GRAPH_TPU_TORCH_PLAN_CACHE) holds content-addressed
     plan snapshots; a hit skips the build.  Without either, it builds.
+    What the cache did (``hit``, ``miss`` or ``off``) is the counter
+    ``plan_cache`` of the innermost open span
+    (:func:`graph_tpu_torch.profile.count`).
     """
     if cache_dir is None:
         cache_dir = os.environ.get(PLAN_CACHE_ENV)
     if not cache_dir:
+        profile.count(plan_cache="off")
         return build_plan(src, dst, n, relabel=relabel, device=device,
                           values=values)
     os.makedirs(cache_dir, exist_ok=True)
@@ -274,11 +279,13 @@ def load_or_build_plan(src, dst, n: int, cache_dir: Optional[str] = None,
         try:
             plan = EdgePlan.load(path, device=device)
             logger.info("EdgePlan cache hit: %s", path)
+            profile.count(plan_cache="hit")
             return plan
         except (OSError, ValueError, KeyError) as exc:
             logger.warning("EdgePlan cache %s unreadable (%s)", path, exc)
     plan = build_plan(src, dst, n, relabel=relabel, device=device,
                       values=values)
+    profile.count(plan_cache="miss")
     try:
         tmp = f"{path}.{os.getpid()}.tmp.npz"
         plan.save(tmp)

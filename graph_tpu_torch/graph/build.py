@@ -14,6 +14,12 @@ no scatter races — every step of the device build is a sort:
 :func:`build_undirected_host` builds the same undirected CSR in host
 memory, through the native radix builder (``native/host_csr.cpp``) for
 int32 ids and numpy otherwise.
+
+:func:`build_directed` and :func:`build_undirected` are ``graph.build``
+spans (:mod:`graph_tpu_torch.profile`); in them each copy of a host
+array is a ``graph.build.host`` span, and each transfer of one to the
+card a ``graph.build.h2d`` span with counters ``bytes`` and
+``device_ms`` (a CUDA-event pair).
 """
 
 from __future__ import annotations
@@ -23,6 +29,7 @@ from typing import Optional
 import numpy as np
 import torch
 
+from graph_tpu_torch import profile
 from graph_tpu_torch.device import resolve_device
 from graph_tpu_torch.dtypes import (
     canonical_id_dtype, check_node_count_fits, torch_id_dtype)
@@ -36,8 +43,15 @@ LAYOUT_CODES = {CsrLayout.UNSORTED: 0, CsrLayout.SORTED: 1,
 
 def _as_tensor(a, device: torch.device, dtype=None) -> torch.Tensor:
     if not isinstance(a, torch.Tensor):
-        a = torch.from_numpy(np.ascontiguousarray(a))
-    return a.to(device=device, dtype=dtype)
+        with profile.span("graph.build.host"):
+            a = torch.from_numpy(np.ascontiguousarray(a))
+    if a.device.type != "cpu" or device.type == "cpu":
+        return a.to(device=device, dtype=dtype)
+    with profile.span("graph.build.h2d") as sp:
+        if sp:
+            sp.count(bytes=a.numel() * a.element_size())
+            sp.cuda_events(device)
+        return a.to(device=device, dtype=dtype)
 
 
 def _id_dtype_of(rows, id_dtype) -> np.dtype:
@@ -120,14 +134,17 @@ def build_directed(
     (csr.rs:522-544) — one CSR pass per direction.
     """
     device = resolve_device(device)
-    n = _infer_node_count(src, dst, node_count)
-    csr_out = csr_from_coo(src, dst, values, node_count=n, layout=layout,
-                           id_dtype=id_dtype, device=device)
-    csr_in = csr_from_coo(dst, src, values, node_count=n, layout=layout,
-                          id_dtype=id_dtype, device=device)
-    nv = None if node_values is None else _as_tensor(node_values, device)
-    return DirectedCsrGraph(csr_out=csr_out, csr_in=csr_in, node_values=nv,
-                            layout=layout)
+    with profile.span("graph.build"):
+        n = _infer_node_count(src, dst, node_count)
+        csr_out = csr_from_coo(src, dst, values, node_count=n,
+                               layout=layout, id_dtype=id_dtype,
+                               device=device)
+        csr_in = csr_from_coo(dst, src, values, node_count=n, layout=layout,
+                              id_dtype=id_dtype, device=device)
+        nv = None if node_values is None else _as_tensor(node_values,
+                                                         device)
+        return DirectedCsrGraph(csr_out=csr_out, csr_in=csr_in,
+                                node_values=nv, layout=layout)
 
 
 def build_undirected(
@@ -148,19 +165,21 @@ def build_undirected(
     edge count (targets/2).
     """
     device = resolve_device(device)
-    n = _infer_node_count(src, dst, node_count)
-    id_dtype = _id_dtype_of(src, id_dtype)  # before the int64 widening
-    src = _as_tensor(src, device, torch.int64)
-    dst = _as_tensor(dst, device, torch.int64)
-    vals = None
-    if values is not None:
-        values = _as_tensor(values, device)
-        vals = torch.cat([values, values])
-    csr = csr_from_coo(torch.cat([src, dst]), torch.cat([dst, src]), vals,
-                       node_count=n, layout=layout, id_dtype=id_dtype,
-                       device=device)
-    nv = None if node_values is None else _as_tensor(node_values, device)
-    return UndirectedCsrGraph(csr=csr, node_values=nv, layout=layout)
+    with profile.span("graph.build"):
+        n = _infer_node_count(src, dst, node_count)
+        id_dtype = _id_dtype_of(src, id_dtype)  # before the int64 widening
+        src = _as_tensor(src, device, torch.int64)
+        dst = _as_tensor(dst, device, torch.int64)
+        vals = None
+        if values is not None:
+            values = _as_tensor(values, device)
+            vals = torch.cat([values, values])
+        csr = csr_from_coo(torch.cat([src, dst]), torch.cat([dst, src]),
+                           vals, node_count=n, layout=layout,
+                           id_dtype=id_dtype, device=device)
+        nv = None if node_values is None else _as_tensor(node_values,
+                                                         device)
+        return UndirectedCsrGraph(csr=csr, node_values=nv, layout=layout)
 
 
 def _host_array(a) -> np.ndarray:

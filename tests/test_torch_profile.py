@@ -1,5 +1,5 @@
 """graph_tpu_torch.profile: a torch.profiler trace around a CPU PageRank,
-its annotated regions, and the device busy share read from a trace."""
+and its annotated regions in the trace and among the recorded spans."""
 
 import inspect
 import json
@@ -36,11 +36,14 @@ def test_trace_writes_a_file_with_the_annotations(tmp_path):
     names = [e.get("name") for e in json.loads(path.read_text())[
         "traceEvents"]]
     assert names.count(ITERATION) == 3 and names.count("whole_run") == 1
-    # no card: the window is the CPU's, and nothing ran on a device
-    busy = profile.device_busy(path, region="whole_run")
-    assert busy["window_us"] > 0 and busy["busy_us"] == 0.0
-    assert busy["busy_share"] == 0.0 and busy["device_us_by_name"] == {}
-    assert busy["device_calls_by_name"] == {}
+    # the same regions among the spans the trace recorded, nested
+    spans = profile.spans(clear=True)
+    whole, = (s for s in spans if s["name"] == "whole_run")
+    iterations = [s for s in spans if s["name"] == ITERATION]
+    assert len(iterations) == 3
+    assert all(s["request"] == whole["id"] for s in iterations)
+    assert whole["start_us"] < min(s["start_us"] for s in iterations)
+    assert whole["end_us"] > max(s["end_us"] for s in iterations)
 
 
 def test_trace_default_directory_and_no_trace(tmp_path, monkeypatch):
@@ -54,40 +57,3 @@ def test_trace_default_directory_and_no_trace(tmp_path, monkeypatch):
         profile.newest_trace(str(tmp_path))
     with profile.annotate("outside a trace"):  # a no-op
         pass
-
-
-def _event(name, cat, ts, dur):
-    return {"ph": "X", "name": name, "cat": cat, "ts": ts, "dur": dur,
-            "pid": 0, "tid": 0}
-
-
-def test_device_busy_on_a_hand_made_trace(tmp_path):
-    events = [
-        _event("run", "gpu_user_annotation", 80.0, 200.0),  # not a window
-        _event("run", "user_annotation", 100.0, 100.0),   # window 100-200
-        _event("launch", "cuda_runtime", 90.0, 5.0),
-        _event("k1", "kernel", 110.0, 30.0),              # 110-140
-        _event("k2", "kernel", 130.0, 20.0),              # overlaps: to 150
-        _event("copy", "gpu_memcpy", 160.0, 10.0),        # 160-170
-        _event("fill", "gpu_memset", 195.0, 20.0),        # cut at 200
-        _event("k1", "kernel", 250.0, 10.0),              # outside
-        {"ph": "i", "name": "marker", "ts": 300.0},       # not timed
-        {"ph": "f", "name": "flow", "ts": 50.0, "id": 1},
-    ]
-    path = tmp_path / "hand.pt.trace.json"
-    path.write_text(json.dumps({"traceEvents": events}))
-    run = profile.device_busy(path, region="run")
-    assert run["window_us"] == 100.0
-    assert run["busy_us"] == 40.0 + 10.0 + 5.0
-    assert run["busy_share"] == pytest.approx(0.55)
-    assert run["device_us_by_name"] == {"k1": 30.0, "k2": 20.0,
-                                        "copy": 10.0, "fill": 5.0}
-    assert run["device_calls_by_name"] == {"k1": 1, "k2": 1, "copy": 1,
-                                           "fill": 1}
-    whole = profile.device_busy(path)  # 80 to 280
-    assert whole["window_us"] == 200.0
-    assert whole["device_calls_by_name"]["k1"] == 2
-    assert whole["busy_us"] == 40.0 + 10.0 + 20.0 + 10.0
-    assert list(whole["device_us_by_name"]) == ["k1", "k2", "fill", "copy"]
-    with pytest.raises(ValueError, match="no event named"):
-        profile.device_busy(path, region="missing")
