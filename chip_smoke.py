@@ -158,17 +158,21 @@ SCATTER_ATOL = 1e-9
 STAGE_RMAT_REPS = 5
 #: Shards of the mesh phase's mesh, all on the one card.
 MESH_SHARDS = 4
+#: PageRank's kernels on the plan engine's device loop: K1, K2 and the
+#: Jacobi tails around them (logging, out of core and the mesh keep the
+#: op-chain body).
+PLAN_PAGERANK = ("k1_gather", "k2_reduce", "jacobi_quantize", "jacobi_update")
 #: The kernels each path must launch at least once per iteration.
-PATH_KERNELS = {"pagerank": ("k1_gather", "k2_reduce"),
+PATH_KERNELS = {"pagerank": PLAN_PAGERANK,
                 "wcc": ("k1_gather", "k2_reduce_min"),
                 "sssp": ("k1_gather_weighted", "k2_reduce_min"),
-                "builder_pagerank": ("k1_gather", "k2_reduce"),
+                "builder_pagerank": PLAN_PAGERANK,
                 "builder_wcc": ("k1_gather", "k2_reduce_min"),
-                "api_pagerank": ("k1_gather", "k2_reduce"),
+                "api_pagerank": PLAN_PAGERANK,
                 "api_wcc": ("k1_gather", "k2_reduce_min"),
-                "server_pagerank": ("k1_gather", "k2_reduce"),
-                "flight_pagerank": ("k1_gather", "k2_reduce"),
-                "cli_pagerank": ("k1_gather", "k2_reduce"),
+                "server_pagerank": PLAN_PAGERANK,
+                "flight_pagerank": PLAN_PAGERANK,
+                "cli_pagerank": PLAN_PAGERANK,
                 "engines_pagerank_logged": ("k1_gather", "k2_reduce"),
                 "engines_sssp_grid": ("k1_gather_weighted", "k2_reduce_min"),
                 "ooc_pagerank": ("k1_gather", "k2_reduce"),
@@ -295,7 +299,19 @@ def edge_cases(dev, seed):
     xs[:64] = (2 * np.arange(64) + 1) / np.float32(2**31)
     ws = (g.random(m) * 2.6 - 1.3).astype(np.float32)
     ws[: m // 4] = 1.0
+    # the Jacobi tails: a ragged n over three steps of the grid-stride
+    # loop at the most blocks, halfway quanta ((2k+1) / 2**31 with inv =
+    # 1), nodes without out-edges, sums that wrap int32
+    nj = 2 * 4096 * 1024 + 4099
+    jac_scores = (g.random(nj) * 2.0 / nj).astype(np.float32)
+    jac_scores[:64] = (2 * np.arange(64) + 1) / np.float32(2**31)
+    deg = g.integers(0, 50, nj)
+    jac_inv = np.where(deg > 0, 1.0 / np.maximum(deg, 1), 0.0).astype(
+        np.float32)
+    jac_inv[:64] = 1.0
     arrays = {
+        "jac_scores": jac_scores, "jac_inv": jac_inv,
+        "jac_acc": g.integers(-2**31, 2**31, nj).astype(np.int32),
         "xq": g.integers(-2**31, 2**31, 1 << 12).astype(np.int32),
         "slot_src": g.integers(0, 1 << 12, m).astype(np.int32),
         "contrib": g.integers(-2**31, 2**31, m).astype(np.int32),
@@ -304,7 +320,8 @@ def edge_cases(dev, seed):
         "ws_add": np.where(ws == 1.0, np.float32(0.0), ws * 0.5),
     }
     out = {k: torch.from_numpy(a).to(dev) for k, a in arrays.items()}
-    for name in ("slot_src", "contrib", "fbits", "wf", "xq"):
+    for name in ("slot_src", "contrib", "fbits", "wf", "xq", "jac_scores",
+                 "jac_inv", "jac_acc"):
         t = out[name]
         out[name + "_off1"] = torch.cat([t[:1], t])[1:]  # storage offset 1
     return out
@@ -312,8 +329,21 @@ def edge_cases(dev, seed):
 
 def check_edge_cases(kernels, a, errs):
     """Every kernel against its plain version on the edge-case inputs,
-    with K1 windows of none, part of and more than the 4,096 sources."""
+    with K1 windows of none, part of and more than the 4,096 sources; the
+    Jacobi update's residual within 1e-6 relative of the plain one's."""
     k = kernels
+    for off in ("", "_off1"):
+        s, inv, acc = (a[name + off] for name in ("jac_scores", "jac_inv",
+                                                  "jac_acc"))
+        hold(errs, "jacobi_quantize", k.jacobi_quantize(s, inv),
+             k.jacobi_quantize_plain(s, inv))
+        base, d = float(np.float32(0.15) / np.float32(s.numel())), 0.85
+        new, err = k.jacobi_update(acc, s, base, d)
+        want, want_err = k.jacobi_update_plain(acc, s, base, d)
+        hold(errs, "jacobi_update", new, want)
+        rel = abs(float(err) - float(want_err)) / float(want_err)
+        check(rel <= 1e-6, f"jacobi_update's residual {float(err)} is "
+              f"{rel} off the plain one's {float(want_err)}")
     for off in ("", "_off1"):
         xq, src = a["xq" + off], a["slot_src" + off]
         for h in (0, 1024, 8192):
@@ -1967,6 +1997,85 @@ def row(name, path, source, replaces, launches, errs, run, plain,
             **design}
 
 
+def tails_rows(kernels, eng, graph, res, launches, errs):
+    """The rows of PageRank's Jacobi tail kernels at the PageRank path's
+    shapes, over its final scores in the engine's order: each kernel
+    held to its plain version (the op chain it replaced, timed as
+    ``plain_ms``), the update's residual within 1e-6 relative; bound
+    12·n bytes each (8 read and 4 written a node)."""
+    import torch
+
+    from graph_tpu_torch.algos.pagerank import _inv_outdeg, _scalars
+
+    k = kernels
+    scores = eng.to_internal(res.scores)
+    inv = eng.to_internal(_inv_outdeg(graph.out_degrees()))
+    n = scores.numel()
+    _, base, d = _scalars(n, 0.85)
+    xq = k.jacobi_quantize_plain(scores, inv)
+    hold(errs, "jacobi_quantize", k.jacobi_quantize(scores, inv), xq)
+    acc = eng.sum_quanta(xq)
+    work = k.jacobi_work(n, scores.device)
+    new, err = k.jacobi_update(acc, scores, base, d, work=work)
+    want, want_err = k.jacobi_update_plain(acc, scores, base, d)
+    hold(errs, "jacobi_update", new, want)
+    rel = abs(float(err) - float(want_err)) / float(want_err)
+    check(rel <= 1e-6, f"jacobi_update's residual {float(err)} is {rel} "
+          f"off the plain one's {float(want_err)} at n={n}")
+    replaces = ("none: XLA fuses this work around the spmv "
+                "(graph_tpu/algos/pagerank.py:423-428); no pl.pallas_call")
+    design = {"threads": k.JACOBI_THREADS, "blocks": k.jacobi_blocks(n),
+              "residual_rel_vs_plain": rel, "timing": COLD_TIMING}
+    none = "none: no single PyTorch call computes it"
+    shapes = f"n={n}"
+    # four sets of inputs, 201 MB, so that each call finds its own cold
+    sets = [(scores.clone(), inv.clone(), acc.clone()) for _ in range(4)]
+    runs = {
+        "jacobi_quantize": (lambda s, i, a: k.jacobi_quantize(s, i),
+                            lambda s, i, a: k.jacobi_quantize_plain(s, i)),
+        "jacobi_update": (
+            lambda s, i, a: k.jacobi_update(a, s, base, d, work=work),
+            lambda s, i, a: k.jacobi_update_plain(a, s, base, d))}
+    rows = []
+    for name, (run, plain) in runs.items():
+        r = row(name, "pagerank", "jacobi_tails.cu", replaces, launches,
+                errs, lambda: run(*sets[0]), lambda: plain(*sets[0]), none,
+                12 * n, 0, shapes, design)
+        r["ms"], r["plain_ms"] = cold_graph_ms(run, sets), \
+            cold_graph_ms(plain, sets)
+        rows.append(r)
+    return rows
+
+
+#: How :func:`cold_graph_ms` times a kernel of a few microseconds.
+COLD_TIMING = ("20 calls captured in a CUDA graph, each on the next of four "
+               "sets of inputs (larger than the L2 together), replayed 10 "
+               "times, by CUDA events: no host time, inputs cold")
+
+
+def cold_graph_ms(fn, sets, reps=20, replays=10):
+    """ms a call of ``fn(*sets[i % len(sets)])``, as :data:`COLD_TIMING`
+    says."""
+    import torch
+
+    fn(*sets[0])
+    _sync()
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        for i in range(reps):
+            fn(*sets[i % len(sets)])
+    graph.replay()
+    _sync()
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    start.record()
+    for _ in range(replays):
+        graph.replay()
+    end.record()
+    end.synchronize()
+    return start.elapsed_time(end) / (reps * replays)
+
+
 def k1_design(window, slot_src):
     """K1's window and the share of slots it serves (from the plan)."""
     return {"window": window,
@@ -3071,6 +3180,7 @@ def run(rmat):
             n, dtype=torch.int32, device=dev).index_add_(0, rows, contrib)),
         4 * m + 8 * (n + 1) + 4 * n, m, pr_shapes, k2_design(k, cuts)))
     del rows, contrib
+    table += tails_rows(k, eng, graph, res, pr_launches, errs)
 
     # WCC shapes: the first round's hook, labels = node ids
     sp_, sh, scuts = sym.plan, sym.window, sym.k2_cuts

@@ -7,7 +7,9 @@ max_iterations=20, tolerance=1e-4, damping=0.85).  Strict Jacobi:
 Three engines compute the spmv:
 
 * ``"plan"``: the EdgeEngine (K1 + K2), in the plan's internal node
-  order, permuted back once at the end;
+  order, permuted back once at the end; the rest of an iteration runs
+  in two kernels of its own, one before K1 and one after K2
+  (``jacobi_quantize``, ``jacobi_update``), except with ``log_progress``;
 * ``"cumsum"``: a gather over the in-CSR and
   :func:`~graph_tpu_torch.ops.segment.segment_sum_fixedpoint`, the same
   int32 quanta as the plan, so the same scores bit for bit;
@@ -49,6 +51,8 @@ import torch
 from graph_tpu_torch import profile
 from graph_tpu_torch.device import synchronize, to_host
 from graph_tpu_torch.engine.engine import EdgeEngine, engine_for
+from graph_tpu_torch.engine.kernels import (
+    jacobi_quantize, jacobi_update, jacobi_work)
 from graph_tpu_torch.engine.loop import (
     Residual, device_while, host_while, into)
 from graph_tpu_torch.graph.csr import DirectedCsrGraph
@@ -194,10 +198,15 @@ def _update(y: torch.Tensor, base: float, d: float,
 def _jacobi(sums: Callable[[torch.Tensor], torch.Tensor],
             inv_outdeg: torch.Tensor, max_iterations: int, tolerance: float,
             damping_factor: float, log: bool = False, *,
-            cache: Optional[dict] = None, key=None
+            cache: Optional[dict] = None, key=None,
+            quanta: Optional[Callable[[torch.Tensor], torch.Tensor]] = None
             ) -> Tuple[torch.Tensor, int, float, int]:
     """The Jacobi loop every engine runs: ``sums(out_scores)`` is its
     spmv.  Returns (scores, iterations, error, host reads).
+
+    ``quanta`` (the plan engine's :meth:`EdgeEngine.sum_quanta`, K1 and
+    K2 over int32 quanta) gives the body of :func:`_tails_body`, unless
+    ``log``: the same scores, its n-sized work in two kernels.
 
     ``graph_tpu``'s ``while_loop``
     (:func:`~graph_tpu_torch.engine.loop.device_while`): on the card one
@@ -228,8 +237,31 @@ def _jacobi(sums: Callable[[torch.Tensor], torch.Tensor],
         run = host_while(_logged(body), state, cond)
         # one read an iteration, the logged residual's
         return run.state[0], run.iterations, run.value, run.iterations
+    if quanta is not None:
+        body = _tails_body(quanta, base, d, n, inv_outdeg.device)
     run = device_while(body, state, cond, cache=cache, key=key)
     return run.state[0], run.iterations, float(run.value), run.host_reads
+
+
+def _tails_body(quanta: Callable[[torch.Tensor], torch.Tensor], base: float,
+                d: float, n: int, device: torch.device) -> Callable:
+    """The plan engine's Jacobi body: ``jacobi_quantize``, K1 and K2
+    (``quanta``), then ``jacobi_update`` with the residual, into the
+    loop's buffers when it gives them.  Each kernel's plain version is
+    the op chain of :func:`_jacobi`'s body, so on the CPU the two bodies
+    are one computation; on the card the scores have the same bits and
+    the residual is summed in another order."""
+    work = None if device.type == "cpu" else jacobi_work(n, device)
+
+    def body(state, out=None):
+        scores, _, inv = state
+        with profile.annotate(ITERATION):
+            new_scores, err = jacobi_update(
+                quanta(jacobi_quantize(scores, inv)), scores, base, d,
+                into(out, 0), into(out, 1), work)
+            return new_scores, err, inv
+
+    return body
 
 
 def _logged(body):
@@ -347,9 +379,11 @@ def _run(graph: DirectedCsrGraph, config: PageRankConfig, engine: str,
     time each iteration like the reference app (page_rank.rs:98-103), at
     one host read per iteration; the scores are the unlogged run's.
     """
+    quanta = None
     if engine == "plan":
         eng = _graph_engine(graph)
         sums = lambda x: eng.spmv(x, internal=True)  # noqa: E731
+        quanta = eng.sum_quanta
         to_internal, to_public = eng.to_internal, eng.to_public
         loops = eng.loops
     else:
@@ -365,7 +399,7 @@ def _run(graph: DirectedCsrGraph, config: PageRankConfig, engine: str,
             int(config.max_iterations), config.tolerance,
             config.damping_factor, log, cache=loops,
             key=("page_rank", engine,
-                 float(np.float32(config.damping_factor))))
+                 float(np.float32(config.damping_factor))), quanta=quanta)
         scores = to_public(scores)
         synchronize(scores.device)
         micros = int((time.perf_counter() - start) * 1e6)

@@ -30,6 +30,7 @@ NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
 _P = ctypes.c_void_p
 _I64 = ctypes.c_longlong
 _I32 = ctypes.c_int
+_F32 = ctypes.c_float
 _PP = ctypes.POINTER(ctypes.c_void_p)
 #: The C entry point of each kernel: (pointers..., counts, [options],
 #: stream) -> cudaError; the device loop's graph assembly (``loop_*``)
@@ -39,6 +40,8 @@ SIGNATURES = {
     "k1_gather_weighted": (_P, _P, _P, _P, _I64, _I32, _I32, _I32, _P),
     "k2_reduce": (_P, _P, _P, _P, _P, _I64, _I64, _I64, _P),
     "k2_reduce_min": (_P, _P, _P, _P, _P, _I64, _I64, _I64, _I32, _P),
+    "jacobi_quantize": (_P, _P, _P, _I64, _I32, _P),
+    "jacobi_update": (_P, _P, _P, _I64, _F32, _F32, _P, _P, _I32, _P),
     "probe_row_gather": (_P, _P, _P, _I64, _I32, _P),
     "probe_lanemap": (_P, _P, _P, _I64, _I32, _P),
     "probe_window_gather": (_P, _P, _P, _I64, _I32, _I32, _P),
@@ -66,6 +69,8 @@ SOURCES = {
     "k1_gather_weighted": "k1_gather",
     "k2_reduce": "k2_reduce",
     "k2_reduce_min": "k2_reduce",
+    "jacobi_quantize": "jacobi_tails",
+    "jacobi_update": "jacobi_tails",
     "probe_row_gather": "k1_probes",
     "probe_lanemap": "k1_probes",
     "probe_window_gather": "k1_probes",

@@ -163,6 +163,16 @@ class EdgeEngine:
                               self.k2_cuts).view(torch.float32)
         return y if internal else self.to_public(y)
 
+    def sum_quanta(self, xq: torch.Tensor) -> torch.Tensor:
+        """acc[d] = sum over edges (s -> d) of xq[s], int32 with
+        wraparound: K1 and K2 over int32 quanta already in the plan's
+        internal order, the spmv's sum path without its quantize and
+        rescale (PageRank's Jacobi body runs those in its own kernels)."""
+        self._check_x(xq, torch.int32)
+        p = self.plan
+        return k2_reduce(k1_gather(xq, p.slot_src, self.window), p.indptr,
+                         self.k2_cuts)
+
     def relax(self, dist: torch.Tensor,
               internal: bool = False) -> torch.Tensor:
         """y[d] = min over weighted edges (s -> d) of dist[s] + w.

@@ -26,6 +26,12 @@ Sums are int32 fixed point, ``round(x * 2**FIXED_BITS)``; integer
 addition and min do not depend on order, so every reduction order gives
 the same bits as the JAX package.
 
+Around K1 and K2, PageRank's Jacobi iteration on the plan engine runs its
+n-sized work in two kernels of its own (``csrc/jacobi_tails.cu``):
+:func:`jacobi_quantize` makes the quanta K1 gathers, and
+:func:`jacobi_update` makes the new scores from K2's sums, with the
+residual.
+
 Each wrapper runs its plain PyTorch version for tensors on the CPU.  For
 CUDA tensors it checks device, dtype, shape and contiguity, launches its
 kernel on the current stream (building it at first use) and raises if
@@ -61,14 +67,20 @@ K2_TILE = 1920
 #: Kernel launches since the last :func:`reset_launches`.  A wrapper adds
 #: one where it launches its kernel, and nowhere else.
 LAUNCHES = {"k1_gather": 0, "k1_gather_weighted": 0, "k2_reduce": 0,
-            "k2_reduce_min": 0}
+            "k2_reduce_min": 0, "jacobi_quantize": 0, "jacobi_update": 0}
 #: The device function each wrapper launches once a call, as a pattern over
 #: mangled kernel names: a captured graph's kernel nodes are counted by it
 #: (:mod:`graph_tpu_torch.engine.loop`).
 KERNEL_NODES = {"k1_gather": r"k1_gather_kernel",
                 "k1_gather_weighted": r"k1_gather_weighted_kernel",
                 "k2_reduce": r"k2_tile_kernel.*SumOp",
-                "k2_reduce_min": r"k2_tile_kernel.*MinOp"}
+                "k2_reduce_min": r"k2_tile_kernel.*MinOp",
+                "jacobi_quantize": r"jacobi_quantize_kernel",
+                "jacobi_update": r"jacobi_update_kernel"}
+#: Threads a block of the Jacobi tail kernels, the ``kThreads`` of
+#: ``csrc/jacobi_tails.cu``, and the most blocks a launch takes.
+JACOBI_THREADS = 256
+JACOBI_MAX_BLOCKS = 4096
 
 
 def reset_launches() -> None:
@@ -284,3 +296,112 @@ def k2_reduce_min(contrib: torch.Tensor, indptr: torch.Tensor, op: str,
     if out.numel():
         _launch_k2("k2_reduce_min", contrib, indptr, cuts, out, MIN_FILL[op])
     return out
+
+
+def jacobi_blocks(n: int) -> int:
+    """The grid of the Jacobi tail kernels for n nodes: a block for each
+    ``JACOBI_THREADS`` vectors of four nodes, at most
+    ``JACOBI_MAX_BLOCKS``.  A function of n alone, and so is the order in
+    which :func:`jacobi_update` adds the residual."""
+    return max(1, min(-(-n // (4 * JACOBI_THREADS)), JACOBI_MAX_BLOCKS))
+
+
+def jacobi_work(n: int, device) -> torch.Tensor:
+    """The zeroed scratch of :func:`jacobi_update` for n nodes: a float64
+    sum a block, then the ticket that finds the last block, which sets it
+    to 0 again.  One scratch serves one launch at a time."""
+    return torch.zeros(jacobi_blocks(n) + 1, dtype=torch.float64,
+                       device=device)
+
+
+def jacobi_quantize_plain(scores: torch.Tensor,
+                          inv: torch.Tensor) -> torch.Tensor:
+    """Plain version of :func:`jacobi_quantize`: ``round(scores * inv *
+    2**FIXED_BITS)`` as int32."""
+    return torch.round(scores * inv * float(1 << FIXED_BITS)).to(torch.int32)
+
+
+def jacobi_update_plain(acc: torch.Tensor, scores: torch.Tensor, base: float,
+                        d: float, out: Optional[torch.Tensor] = None):
+    """Plain version of :func:`jacobi_update`: ``y = acc / 2**FIXED_BITS``
+    in f32, ``new = base + d * y`` with one rounding (``fill_`` and
+    ``add_(alpha=)``, a fused multiply-add), into ``out`` when given, and
+    the residual ``sum(|new - scores|)``.  Returns (new, residual)."""
+    y = acc.to(torch.float32) / float(1 << FIXED_BITS)
+    new = torch.full_like(y, base) if out is None else out.fill_(base)
+    new.add_(y, alpha=d)
+    return new, torch.sum(torch.abs(new - scores))
+
+
+def jacobi_quantize(scores: torch.Tensor, inv: torch.Tensor) -> torch.Tensor:
+    """The quanta of a Jacobi iteration's out-scores:
+    ``xq[i] = round_half_even(f32(scores[i] * inv[i]) * 2**FIXED_BITS)``.
+
+    scores, inv: (n,) f32 (inv is 1/out-degree, 0 for a node without
+    out-edges); every product must stay below 2**(31-FIXED_BITS).  Returns
+    (n,) int32, the bits of :func:`jacobi_quantize_plain`.
+    """
+    if _on_cpu(scores, inv):
+        return jacobi_quantize_plain(scores, inv)
+    _check("scores", scores, torch.float32, scores.device)
+    _check("inv", inv, torch.float32, scores.device)
+    n = scores.numel()
+    if inv.numel() != n:
+        raise ValueError(f"inv has {inv.numel()} nodes, scores {n}")
+    xq = torch.empty(n, dtype=torch.int32, device=scores.device)
+    if n:
+        _launch("jacobi_quantize", scores.device, scores.data_ptr(),
+                inv.data_ptr(), xq.data_ptr(), n, jacobi_blocks(n))
+    return xq
+
+
+def jacobi_update(acc: torch.Tensor, scores: torch.Tensor, base: float,
+                  d: float, out: Optional[torch.Tensor] = None,
+                  err: Optional[torch.Tensor] = None,
+                  work: Optional[torch.Tensor] = None):
+    """A Jacobi iteration's new scores from K2's sums, and its residual:
+    ``new[i] = base + d * f32(acc[i]) * 2**-FIXED_BITS`` with one rounding,
+    ``err = sum(|new[i] - scores[i]|)``.
+
+    acc: (n,) int32, K2's row sums; scores: (n,) f32, the iteration's old
+    scores; base, d: f32 values.  ``out`` ((n,) f32) and ``err`` (a
+    one-element f32 tensor) receive the results when given; ``work`` is a
+    :func:`jacobi_work` for n, made here when not given.  Returns (new,
+    err): ``new`` has the bits of :func:`jacobi_update_plain`; on the card
+    ``err`` is summed in float64 in a fixed order (:func:`jacobi_blocks`)
+    and rounded to f32 once, so it has the same bits on every run and
+    differs from the plain version's f32 sum in the last places.
+    """
+    if _on_cpu(acc, scores):
+        new, e = jacobi_update_plain(acc, scores, base, d, out)
+        return new, e if err is None else err.copy_(e)
+    device = acc.device
+    _check("acc", acc, torch.int32, device)
+    _check("scores", scores, torch.float32, device)
+    n = acc.numel()
+    if scores.numel() != n:
+        raise ValueError(f"scores has {scores.numel()} nodes, acc {n}")
+    if out is None:
+        out = torch.empty(n, dtype=torch.float32, device=device)
+    _check("out", out, torch.float32, device)
+    if out.numel() != n:
+        raise ValueError(f"out has {out.numel()} nodes, acc {n}")
+    if err is None:
+        err = torch.empty((), dtype=torch.float32, device=device)
+    if err.device != device or err.dtype != torch.float32 \
+            or err.numel() != 1:
+        raise ValueError(f"err must be one f32 on {device}, got "
+                         f"{tuple(err.shape)} {err.dtype} on {err.device}")
+    if not n:
+        return out, err.zero_()
+    blocks = jacobi_blocks(n)
+    if work is None:
+        work = jacobi_work(n, device)
+    _check("work", work, torch.float64, device)
+    if work.numel() != blocks + 1:
+        raise ValueError(f"work has {work.numel()} entries, n={n} takes "
+                         f"{blocks + 1}")
+    _launch("jacobi_update", device, acc.data_ptr(), scores.data_ptr(),
+            out.data_ptr(), n, base, d, work.data_ptr(), err.data_ptr(),
+            blocks)
+    return out, err

@@ -14,9 +14,11 @@ import torch
 
 from graph_tpu_torch.engine import EdgeEngine
 from graph_tpu_torch.engine.kernels import (
-    INF_BITS, K1_WINDOW, LAUNCHES, k1_gather, k1_gather_plain,
-    k1_gather_weighted, k1_gather_weighted_plain, k2_reduce, k2_reduce_min,
-    k2_reduce_min_plain, k2_reduce_plain, k2_tile_cuts)
+    INF_BITS, K1_WINDOW, LAUNCHES, jacobi_quantize, jacobi_quantize_plain,
+    jacobi_update, jacobi_update_plain, jacobi_work, k1_gather,
+    k1_gather_plain, k1_gather_weighted, k1_gather_weighted_plain,
+    k2_reduce, k2_reduce_min, k2_reduce_min_plain, k2_reduce_plain,
+    k2_tile_cuts)
 from graph_tpu_torch.probes import k2_kernels as k2p, k2_layout
 from graph_tpu_torch.probes import kernels as probes
 from test_torch_tiles import TILE_CASES, _values, indptr_of
@@ -650,8 +652,10 @@ LOOP_PATHS = {
         g, gtt.DeltaSteppingConfig(s, 2.0, engine="frontier")),
 }
 #: The K1 and K2 kernels of each plan path, launched once a round.
-LOOP_KERNELS = {"pagerank_tol": ("k1_gather", "k2_reduce"),
-                "pagerank_tol0": ("k1_gather", "k2_reduce"),
+LOOP_KERNELS = {"pagerank_tol": ("k1_gather", "k2_reduce", "jacobi_quantize",
+                                 "jacobi_update"),
+                "pagerank_tol0": ("k1_gather", "k2_reduce", "jacobi_quantize",
+                                  "jacobi_update"),
                 "wcc_plan": ("k1_gather", "k2_reduce_min"),
                 "sssp_plan": ("k1_gather_weighted", "k2_reduce_min")}
 
@@ -835,3 +839,135 @@ def test_device_loop_shared_by_two_threads_on_card(cuda_device, pair,
             assert _bits_equal(res.distances, want[s].distances), s
             assert res.ran_iterations == want[s].ran_iterations
             assert res.host_reads == 1
+
+
+# PageRank's Jacobi tails on the plan engine: jacobi_quantize before K1,
+# jacobi_update (new scores and the residual) after K2.
+
+def _rmat_engine(scale, device):
+    """RMAT ``scale`` (seed 5) on ``device``: the graph, its plan engine
+    and 1/out-degree in the engine's internal order."""
+    import graph_tpu_torch as gtt
+    from graph_tpu_torch.algos.pagerank import _graph_engine, _inv_outdeg
+    from graph_tpu_torch.generate import host_rmat
+
+    src, dst = host_rmat(scale, seed=5)
+    g = gtt.build_directed(src, dst, node_count=1 << scale, device=device)
+    eng = _graph_engine(g)
+    return g, eng, eng.to_internal(_inv_outdeg(g.out_degrees()))
+
+
+def _tails_inputs(case, device):
+    """(scores, 1/out-degree, K2's sums, base, d) of one case: RMAT 16
+    after three plain Jacobi iterations, or n = 1, a block of the kernels
+    (1,024 nodes) plus one, and a ragged n, with halfway quanta, nodes
+    without out-edges and sums that wrap int32."""
+    from graph_tpu_torch.algos.pagerank import _scalars
+
+    if case == "rmat16":
+        _, eng, inv = _rmat_engine(16, device)
+        n = inv.numel()
+        init, base, d = _scalars(n, 0.85)
+        scores = torch.full((n,), init, device=device)
+        for _ in range(3):
+            acc = eng.sum_quanta(jacobi_quantize_plain(scores, inv))
+            scores, _ = jacobi_update_plain(acc, scores, base, d)
+        return scores, inv, eng.sum_quanta(jacobi_quantize_plain(
+            scores, inv)), base, d
+    n = {"n1": 1, "block_plus_one": 1025, "ragged": 4 * 4096 * 256 + 4099}[
+        case]
+    g = np.random.default_rng(n)
+    scores = (g.random(n) * 2.0 / n).astype(np.float32)
+    deg = g.integers(0, 50, n)
+    inv = np.where(deg > 0, 1.0 / np.maximum(deg, 1), 0.0).astype(np.float32)
+    half = min(n, 64)
+    scores[:half] = (2 * np.arange(half) + 1) / np.float32(2**31)
+    inv[:half] = 1.0
+    acc = g.integers(-2**31, 2**31, n).astype(np.int32)
+    init, base, d = _scalars(n, 0.85)
+    return (torch.from_numpy(scores).to(device),
+            torch.from_numpy(inv).to(device),
+            torch.from_numpy(acc).to(device), base, d)
+
+
+@pytest.mark.requires_cuda
+@pytest.mark.parametrize("offset", [0, 1])
+@pytest.mark.parametrize("case", ["n1", "block_plus_one", "ragged",
+                                  "rmat16"])
+def test_jacobi_tails_match_plain_on_card(cuda_device, case, offset):
+    """Both tail kernels against their plain versions: the quanta and the
+    new scores bit for bit, aligned or one element off (storage offset
+    1); the residual the same bits in every launch over one scratch, and
+    within 1e-6 relative of ``torch.sum``'s."""
+    scores, inv, acc, base, d = _tails_inputs(case, cuda_device)
+    if offset:
+        scores, inv, acc = (torch.cat([t[:1], t])[1:]
+                            for t in (scores, inv, acc))
+    before = dict(LAUNCHES)
+    xq = jacobi_quantize(scores, inv)
+    assert torch.equal(xq, jacobi_quantize_plain(scores, inv))
+    want, want_err = jacobi_update_plain(acc, scores, base, d)
+    work = jacobi_work(scores.numel(), cuda_device)
+    errs = []
+    for _ in range(3):
+        new, err = jacobi_update(acc, scores, base, d, work=work)
+        assert _bits_equal(new, want)
+        errs.append(err.clone())
+    torch.cuda.synchronize()
+    assert all(_bits_equal(e, errs[0]) for e in errs)
+    assert abs(float(errs[0]) - float(want_err)) <= 1e-6 * float(want_err)
+    assert LAUNCHES["jacobi_quantize"] == before["jacobi_quantize"] + 1
+    assert LAUNCHES["jacobi_update"] == before["jacobi_update"] + 3
+    assert int(work[-1].view(torch.int64)) == 0  # the ticket is back at 0
+
+
+@pytest.mark.requires_cuda
+def test_jacobi_wrappers_write_into_and_reject_on_card(cuda_device):
+    scores, inv, acc, base, d = _tails_inputs("block_plus_one", cuda_device)
+    out, err = torch.empty_like(scores), torch.empty((), device=cuda_device)
+    new, e = jacobi_update(acc, scores, base, d, out, err)
+    assert new is out and e is err
+    assert _bits_equal(out, jacobi_update_plain(acc, scores, base, d)[0])
+    empty = torch.empty(0, device=cuda_device)
+    n0, e0 = jacobi_update(empty.int(), empty, base, d)
+    assert n0.numel() == 0 and float(e0) == 0.0
+    assert jacobi_quantize(empty, empty).numel() == 0
+    with pytest.raises(TypeError):
+        jacobi_quantize(scores.double(), inv)
+    with pytest.raises(ValueError):
+        jacobi_quantize(scores, inv[:-1])
+    with pytest.raises(ValueError):
+        jacobi_quantize(scores, inv.cpu())
+    with pytest.raises(TypeError):
+        jacobi_update(acc.float(), scores, base, d)
+    with pytest.raises(ValueError):
+        jacobi_update(acc, scores[::2], base, d)
+    with pytest.raises(ValueError):
+        jacobi_update(acc, scores, base, d, out=out[:-1])
+    with pytest.raises(ValueError):
+        jacobi_update(acc, scores, base, d, err=torch.empty(2,
+                                                            device=cuda_device))
+    with pytest.raises(ValueError):
+        jacobi_update(acc, scores, base, d,
+                      work=jacobi_work(4 * scores.numel(), cuda_device))
+
+
+@pytest.mark.requires_cuda
+@pytest.mark.parametrize("tolerance", [1e-4, 0.0])
+def test_page_rank_plan_bit_equal_to_the_op_chain_body_on_card(cuda_device,
+                                                               tolerance):
+    """PageRank ``plan`` at RMAT 18 (the tails kernels) against a device
+    loop of the op-chain body over ``EdgeEngine.spmv``: the same scores
+    bit for bit, the same iterations, the residual within 1e-6."""
+    import graph_tpu_torch as gtt
+    from graph_tpu_torch.algos.pagerank import _jacobi
+
+    g, eng, inv = _rmat_engine(18, cuda_device)
+    got = gtt.page_rank(g, gtt.PageRankConfig(engine="plan",
+                                              tolerance=tolerance))
+    scores, it, err, reads = _jacobi(lambda x: eng.spmv(x, internal=True),
+                                     inv, 20, tolerance, 0.85)
+    assert reads == got.host_reads == 1
+    assert _bits_equal(got.scores, eng.to_public(scores))
+    assert got.ran_iterations == it >= 1
+    assert abs(got.error - err) <= 1e-6

@@ -391,6 +391,48 @@ def test_wcc_loop_launches_match_its_kernel_nodes_on_card(cuda_device):
 
 
 @pytest.mark.requires_cuda
+@pytest.mark.parametrize("pair", [True, False])
+def test_page_rank_loop_launches_match_its_kernel_nodes_on_card(
+        cuda_device, pair, monkeypatch):
+    """The plan engine's captured body holds K1, K2 and each Jacobi tail
+    kernel once, on two sets of buffers or one; ``loop.run`` counts each
+    once a body."""
+    monkeypatch.setattr(loop, "PAIR_MIN_BYTES", 0 if pair else 1 << 62)
+    g = _rmat(cuda_device)
+    with profile.record():
+        res = gtt.page_rank(g, gtt.PageRankConfig(tolerance=0.0))
+    run, = _named(profile.spans(), "loop.run")
+    from graph_tpu_torch.algos.pagerank import _graph_engine
+
+    dl, = _graph_engine(g).loops.values()
+    assert len(dl.graphs) == (2 if pair else 1)
+    for graph in dl.graphs:
+        names = loop.kernel_nodes(graph)
+        assert {name: sum(bool(re.search(pattern, n)) for n in names)
+                for name, pattern in kernels.KERNEL_NODES.items()} == {
+            "k1_gather": 1, "k1_gather_weighted": 0, "k2_reduce": 1,
+            "k2_reduce_min": 0, "jacobi_quantize": 1, "jacobi_update": 1}
+    bodies = res.ran_iterations
+    assert bodies == 20
+    assert run["counters"]["launches"] == {
+        "k1_gather": bodies, "k2_reduce": bodies, "jacobi_quantize": bodies,
+        "jacobi_update": bodies}
+
+
+@pytest.mark.requires_cuda
+def test_wcc_and_sssp_loops_launch_no_jacobi_tails_on_card(cuda_device):
+    g = _rmat(cuda_device, weighted=True)
+    with profile.record():
+        gtt.wcc(g)
+        gtt.delta_stepping(g, gtt.DeltaSteppingConfig(0, 3.0))
+    runs = _named(profile.spans(), "loop.run")
+    assert len(runs) == 2
+    for run in runs:
+        assert not {"jacobi_quantize", "jacobi_update"} & set(
+            run["counters"]["launches"])
+
+
+@pytest.mark.requires_cuda
 def test_h2d_spans_carry_bytes_and_device_time_on_card(cuda_device):
     src, dst = _edges(m=1 << 16)
     arr = np.stack([src, dst], axis=1)
