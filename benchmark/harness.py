@@ -2,8 +2,8 @@
 the check against the plain reference, and the metrics.
 
 Everything a cell names is found by name under the benchmark's folder
-(:class:`Registry`), so a later cell, mix, op, generator or metric is a
-new file and no edit here.
+(:class:`Registry`), so a later cell, mix, op, kind of answer, generator
+or metric is a new file and no edit here.
 """
 
 from __future__ import annotations
@@ -21,8 +21,7 @@ from typing import Callable, Optional
 
 import torch
 
-from benchmark import compare, schedule
-from benchmark.ops import refs
+from benchmark import schedule
 from benchmark.trace import traced
 
 ROOT = Path(__file__).resolve().parent
@@ -241,21 +240,23 @@ def check(cell: Cell, items: list, control: bool = False) -> dict:
     """Each sampled answer against the reference's answer to the same
     request: the worst of each number over the sample, by kind.
 
-    With ``control`` the program's answers are replaced by the reference
-    computed one precision lower (:data:`refs.CONTROL`)."""
+    Each op's kind of answer (``kinds/<KIND>.py``) gives the comparison
+    and the reference's precision.  With ``control`` the program's answers
+    are replaced by the reference computed one precision lower (the
+    kind's ``CONTROL``)."""
     worst: dict = {}
     cache: dict = {}
     for req, value in items:
         op = req.op
+        kind = cell.reg.module("kinds", op.KIND)
         key = op.ref_key(req)
         if key not in cache:
-            cache[key] = op.reference(cell, req, refs.REFERENCE[op.KIND]).cpu(
-                ).numpy()
+            cache[key] = op.reference(cell, req, kind.REFERENCE).cpu().numpy()
         if control:
-            low = op.reference(cell, req, refs.CONTROL[op.KIND])
+            low = op.reference(cell, req, kind.CONTROL)
             value = low.to(torch.float32 if low.is_floating_point()
                            else torch.int64).cpu().numpy()
-        for name, v in compare.KINDS[op.KIND](value, cache[key]).items():
+        for name, v in kind.compare(value, cache[key]).items():
             full = f"{op.KIND}.{name}"
             worst[full] = max(worst.get(full, float("-inf")), v)
     return worst

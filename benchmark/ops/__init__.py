@@ -3,8 +3,9 @@ traffic mix.
 
 An op module has:
 
-* ``KIND``: the kind of answer (``page_rank``, ``wcc``, ``sssp``), which
-  picks the comparison of :mod:`benchmark.compare` and the limits;
+* ``KIND``: the kind of answer, the name of a file under ``kinds/``
+  (``page_rank``, ``wcc``, ``sssp``), which picks the comparison, the
+  reference's precision and the control's, and the limits;
 * ``GRAPH``: a builder of :mod:`benchmark.ops.graphs`, run once in set-up;
 * ``SOURCE``: whether a request starts from a source node;
 * ``call(cell, req, mark) -> Answer``: the request through the port's

@@ -24,11 +24,3 @@ def components(cell, n: int, dtype: torch.dtype) -> torch.Tensor:
 def distances(cell, n: int, start: int, dtype: torch.dtype) -> torch.Tensor:
     d = cell.data
     return sssp.bellman_ford(d.src, d.dst, d.weights, n, start, dtype=dtype)
-
-
-#: The reference's precision and the control's (one below what the
-#: configurations state: float32 scores and distances, int32 labels).
-REFERENCE = {"page_rank": torch.float64, "sssp": torch.float64,
-             "wcc": torch.int64}
-CONTROL = {"page_rank": torch.bfloat16, "sssp": torch.bfloat16,
-           "wcc": torch.int16}

@@ -9,7 +9,7 @@ import numpy as np
 import pytest
 import torch
 
-from benchmark import compare, harness, schedule, stats, work
+from benchmark import harness, schedule, stats, work
 from benchmark.generators import graph500_kronecker
 from benchmark.reference import pagerank, sssp, wcc
 from benchmark.tests.conftest import load_bench, small_copy
@@ -128,18 +128,21 @@ def test_reference_wcc_and_pagerank_on_small_graphs():
 
 
 def test_compare_reads_wrong_answers():
+    reg = harness.Registry()
+    page_rank, sssp_, wcc_ = (reg.module("kinds", k)
+                              for k in ("page_rank", "sssp", "wcc"))
     r = np.array([0.5, 0.3, 0.2])
-    assert compare.page_rank(r.astype(np.float32), r)["max_rel"] < 1e-7
-    assert compare.page_rank(np.array([0.5, 0.3, 0.1]), r)["max_rel"] == \
+    assert page_rank.compare(r.astype(np.float32), r)["max_rel"] < 1e-7
+    assert page_rank.compare(np.array([0.5, 0.3, 0.1]), r)["max_rel"] == \
         pytest.approx(0.5)
     ref = np.array([0.0, 1.0, np.inf])
-    unreached = compare.UNREACHED
-    assert compare.sssp(np.array([0.0, 1.0, unreached]), ref)["rel_err"] == 0
-    assert compare.sssp(np.array([0.0, unreached, unreached]),
-                        ref)["rel_err"] == float("inf")
-    assert compare.sssp(np.array([0.0, 1.0, 3.0]), ref)["rel_err"] == \
+    unreached = sssp_.UNREACHED
+    assert sssp_.compare(np.array([0.0, 1.0, unreached]), ref)["rel_err"] == 0
+    assert sssp_.compare(np.array([0.0, unreached, unreached]),
+                         ref)["rel_err"] == float("inf")
+    assert sssp_.compare(np.array([0.0, 1.0, 3.0]), ref)["rel_err"] == \
         float("inf")
-    assert compare.wcc(np.array([0, 0, 2]), np.array([0, 0, 0])) == \
+    assert wcc_.compare(np.array([0, 0, 2]), np.array([0, 0, 0])) == \
         {"mismatched": 1.0}
 
 
@@ -202,3 +205,111 @@ def test_a_config_mix_and_metric_added_by_name_are_found(tmp_path,
     res = harness.run_cell(bench, "rmat-7.two", 9, 0.2, False,
                            device="cpu", registry=reg)
     assert set(res["metrics"]) == {"throughput_gevps", "setup_s"}
+
+
+TC_KIND = '''"""One exact count, held against an int64 reference."""
+
+import numpy as np
+import torch
+
+REFERENCE = torch.int64
+CONTROL = torch.float32
+
+
+def compare(answer, ref):
+    """``off``: how far the count lies from the reference's."""
+    a = np.asarray(answer, dtype=np.float64)
+    r = np.asarray(ref, dtype=np.float64)
+    if a.shape != r.shape:
+        return {"off": float("inf")}
+    return {"off": float(np.abs(a - r).max())}
+'''
+
+TC_OP = '''"""Global triangle count of the DEDUPLICATED undirected graph built in
+set-up; the reference is trace(A^3) / 6 of the dense 0/1 matrix."""
+
+import numpy as np
+import torch
+
+from benchmark.ops import Answer
+from graph_tpu_torch.algos.triangle_count import global_triangle_count
+from graph_tpu_torch.graph import CsrLayout
+from graph_tpu_torch.graph.build import build_undirected
+
+KIND = "triangle_count"
+SOURCE = False
+
+
+def undirected(cell):
+    d = cell.data
+    return build_undirected(d.src, d.dst, node_count=d.n,
+                            layout=CsrLayout.DEDUPLICATED, device=cell.device)
+
+
+GRAPH = undirected
+
+
+def call(cell, req, mark):
+    res = global_triangle_count(cell.graph(GRAPH))
+    mark("call")
+    return Answer(np.array([res.triangles]), micros=res.micros)
+
+
+def nodes(cell):
+    return cell.data.n
+
+
+def ref_key(req):
+    return (KIND,)
+
+
+def reference(cell, req, dtype):
+    d = cell.data
+    src, dst = d.src.cpu(), d.dst.cpu()
+    a = torch.zeros((d.n, d.n), dtype=dtype)
+    a[src, dst] = 1
+    a[dst, src] = 1
+    a.fill_diagonal_(0)
+    return torch.div(torch.trace(a @ a @ a), 6,
+                     rounding_mode="floor").reshape(1)
+'''
+
+
+def test_a_kind_added_by_name_is_found(tmp_path, monkeypatch):
+    """A triangle-count cell, its kind of answer included, is new files
+    only: the harness reads its count exact, and one off as not correct."""
+    reg = small_copy(tmp_path / "benchmark")
+    root = reg.root
+    held = {p: p.read_bytes() for p in root.rglob("*") if p.is_file()}
+    config = json.loads((root / "configs" / "graph500-s22.json").read_text())
+    config.update(name="graph500-s7", scale=7, n=128, m=16 * 128,
+                  limits={"triangle_count": {"off": 0}})
+    del config["weights"]
+    new = {"configs/graph500-s7.json": json.dumps(config),
+           "traffic/tc.json": json.dumps(
+               {"rotation": [{"op": "global_triangle_count"}],
+                "warmup": 1, "sample": 1}),
+           "kinds/triangle_count.py": TC_KIND,
+           "ops/global_triangle_count.py": TC_OP}
+    for rel, text in new.items():
+        assert not (root / rel).exists()
+        (root / rel).write_text(text)
+    bench = load_bench()
+    bench["configs"].append({"name": "graph500-s7"})
+    bench["workloads"].append({"name": "graph500-s7.tc",
+                               "config": "graph500-s7", "traffic": "tc",
+                               "chips": 1})
+    res = harness.run_cell(bench, "graph500-s7.tc", 2**31 + 7, 0.2, False,
+                           device="cpu", registry=reg)
+    assert res["correct"], res["checks"]
+    assert res["checks"]["triangle_count.off"]["value"] == 0
+
+    op = reg.module("ops", "global_triangle_count")
+    call = op.call
+    monkeypatch.setattr(op, "call", lambda cell, req, mark: op.Answer(
+        call(cell, req, mark).value + 1))
+    res = harness.run_cell(bench, "graph500-s7.tc", 2**31 + 7, 0.2, False,
+                           device="cpu", registry=reg)
+    assert not res["correct"]
+    assert res["checks"]["triangle_count.off"]["value"] == 1
+    assert {p: p.read_bytes() for p in held} == held

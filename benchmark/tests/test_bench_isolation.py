@@ -1,8 +1,10 @@
-"""Nothing the benchmark runs imports JAX or the JAX package, and the
-plain reference imports nothing of the port.
+"""Nothing the benchmark runs imports JAX or the JAX package, and
+neither the plain reference nor the kinds of answer import anything of
+the port.
 
 Names are compared by their top-level part, whole: ``graph_tpu_torch``
-is the port, and allowed outside ``benchmark/reference/``."""
+is the port, and allowed outside ``benchmark/reference/`` and
+``benchmark/kinds/``."""
 
 import ast
 import json
@@ -40,7 +42,7 @@ def _imports(path):
 def test_no_file_imports_jax_or_the_jax_package(path):
     tops = {name.split(".")[0] for name in _imports(path)}
     assert not tops & FORBIDDEN, f"{path} imports {tops & FORBIDDEN}"
-    if "reference" in path.relative_to(BENCH).parts:
+    if {"reference", "kinds"} & set(path.relative_to(BENCH).parts):
         assert "graph_tpu_torch" not in tops, f"{path} imports the port"
 
 
@@ -58,15 +60,15 @@ def _loaded_after(code):
 
 
 def test_everything_a_run_loads_is_free_of_jax():
-    """run.py, the harness, every op, generator and metric reader, and the
-    reference, loaded by name as a run loads them."""
+    """run.py, the harness, every op, kind of answer, generator and metric
+    reader, and the reference, loaded by name as a run loads them."""
     code = (
         "import benchmark.run, benchmark.calibrate\n"
         "from benchmark import harness\n"
         "import benchmark.reference.pagerank, benchmark.reference.wcc, "
         "benchmark.reference.sssp\n"
         "reg = harness.Registry()\n"
-        "for folder in ('ops', 'generators', 'metrics'):\n"
+        "for folder in ('ops', 'kinds', 'generators', 'metrics'):\n"
         "    for p in sorted((reg.root / folder).glob('*.py')):\n"
         "        if p.stem != '__init__':\n"
         "            reg.module(folder, p.stem)\n")
@@ -78,7 +80,8 @@ def test_everything_a_run_loads_is_free_of_jax():
 def test_the_reference_loads_nothing_of_the_port():
     loaded = _loaded_after(
         "import benchmark.reference.pagerank, benchmark.reference.wcc, "
-        "benchmark.reference.sssp, benchmark.compare")
+        "benchmark.reference.sssp, benchmark.kinds.page_rank, "
+        "benchmark.kinds.wcc, benchmark.kinds.sssp")
     assert not loaded & (FORBIDDEN | {"graph_tpu_torch"})
 
 

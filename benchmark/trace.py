@@ -1,11 +1,10 @@
 """A ``torch.profiler`` trace of part of a run, read back from its file.
 
-The arithmetic of the device's busy time is a copy of
-``graph_tpu_torch.profile.device_busy``: the union of the device
-intervals (kernels, copies, fills) inside the traced window.  Inside a
-conditional CUDA graph CUPTI reports only part of the kernels, so busy
-time and per-kernel sums there are lower bounds; a kernel's mean time
-over the events it does report is not.
+The device's busy time is the union of the device intervals (kernels,
+copies, fills) inside the traced window.  Inside a conditional CUDA
+graph CUPTI reports only part of the kernels, so busy time and
+per-kernel sums there are lower bounds; a kernel's mean time over the
+events it does report is not.
 """
 
 from __future__ import annotations
