@@ -34,6 +34,16 @@ Layout semantics (the reference's):
   distinct adjacency keys.
 * UNSORTED: rejected (the reference's merge assumes sorted lists).
 
+Spans (:mod:`graph_tpu_torch.profile`, DEDUPLICATED path on one
+device): ``triangle_count.run`` around the timed region (counters
+``forward_edges``, ``wedges``, ``wedge_slots``, ``slabs``, as in the
+result's ``phases``); inside it ``triangle_count.orient`` (the read-back
+and the orientation; ``forward_edges``, ``native``) with
+``triangle_count.to_host`` (the two copies; ``bytes``),
+``triangle_count.pack`` (``wedges``, ``rows``) and
+``triangle_count.join`` (``wedge_slots``, ``slabs``, ``bytes`` sent to
+the device, and ``device_ms`` from CUDA events on a card).
+
 Under a default mesh of more than one shard
 (:func:`graph_tpu_torch.parallel.use_mesh`) the DEDUPLICATED count
 joins on every shard (:mod:`graph_tpu_torch.parallel.tc`), unless a
@@ -50,6 +60,7 @@ from typing import Optional
 import numpy as np
 import torch
 
+from graph_tpu_torch import profile
 from graph_tpu_torch.algos.pagerank import _default_mesh
 from graph_tpu_torch.device import run_device
 from graph_tpu_torch.graph.csr import CsrLayout, UndirectedCsrGraph
@@ -64,6 +75,8 @@ SLAB = 1 << 25
 #: How a wedge finds its edge: "lookup" (sorted keys, searchsorted) or
 #: "sort" (graph_tpu's sort of wedges with edge keys).
 JOINS = ("lookup", "sort")
+#: The ``phases`` entries that the ``triangle_count.run`` span counts.
+RUN_COUNTERS = ("forward_edges", "wedges", "wedge_slots", "slabs")
 
 
 @dataclasses.dataclass(frozen=True)
@@ -207,6 +220,10 @@ def _pack_chunks(heads: np.ndarray, items: np.ndarray):
     return mats, cross
 
 
+def _nbytes(*arrays) -> int:
+    return sum(int(x.nbytes) for x in arrays)
+
+
 def _pad_edge_keys(ev, ew):
     """Pad edge keys to a 2^20 multiple with a sentinel distinct from the
     wedge pad (so pad wedges never match pad edges), as ``graph_tpu``
@@ -304,18 +321,28 @@ def global_triangle_count(graph: UndirectedCsrGraph, *,
 
         return triangle_count_sharded(graph, mesh)
     device = run_device(graph, device)
-    start = time.perf_counter()
-    phases = {}
-    prep = _prepare_distinct(graph, phases)
-    count = 0
-    if prep is not None:
-        mats, cross, a, b = prep
-        t0 = time.perf_counter()
-        count = _run_join(mats, cross, a, b, device=device, phases=phases)
-        phases["join_s"] = time.perf_counter() - t0
-    return TriangleCountResult(
-        triangles=count, micros=int((time.perf_counter() - start) * 1e6),
-        phases=phases)
+    with profile.span("triangle_count.run") as sp:
+        start = time.perf_counter()
+        phases = {}
+        prep = _prepare_distinct(graph, phases)
+        count = 0
+        if prep is not None:
+            mats, cross, a, b = prep
+            t0 = time.perf_counter()
+            with profile.span("triangle_count.join") as jp:
+                jp.cuda_events(device)
+                count = _run_join(mats, cross, a, b, device=device,
+                                  phases=phases)
+                if jp:
+                    jp.count(wedge_slots=phases["wedge_slots"],
+                             slabs=phases["slabs"],
+                             bytes=_nbytes(a, b, *mats.values(),
+                                           *(cross or ())))
+            phases["join_s"] = time.perf_counter() - t0
+        micros = int((time.perf_counter() - start) * 1e6)
+        if sp:
+            sp.count(**{k: phases[k] for k in RUN_COUNTERS if k in phases})
+    return TriangleCountResult(triangles=count, micros=micros, phases=phases)
 
 
 def _check_node_count(n: int) -> None:
@@ -338,31 +365,38 @@ def _prepare_distinct(graph: UndirectedCsrGraph, phases: dict):
     if n == 0 or m_real == 0:
         return None
     _check_node_count(n)
-    # ids below 2**29 fit int32: cast where the graph lies, copy half
-    srcs = graph.csr.sources[:m_real].to(torch.int32).cpu().numpy()
-    tgts = graph.csr.targets[:m_real].to(torch.int32).cpu().numpy()
-    # ascending-degree rank bounds forward degree by the arboricity
-    nat = tc_orient_native(srcs, tgts, n)
-    if nat is not None:
-        a, b = nat[0].astype(np.int64), nat[1]
-    else:
-        srcs, tgts = srcs.astype(np.int64), tgts.astype(np.int64)
-        deg = np.bincount(srcs, minlength=n)
-        order = np.argsort(deg, kind="stable")
-        rank = np.empty(n, np.int64)
-        rank[order] = np.arange(n)
-        a = rank[srcs]
-        b = rank[tgts]
-        fwd = a < b  # each edge once; self-loops drop (equal rank)
-        a, b = a[fwd], b[fwd]
-        o = np.lexsort((b, a))
-        a, b = a[o], b[o].astype(np.int32)
+    with profile.span("triangle_count.orient") as sp:
+        with profile.span("triangle_count.to_host") as cp:
+            # ids below 2**29 fit int32: cast where the graph lies, copy half
+            srcs = graph.csr.sources[:m_real].to(torch.int32).cpu().numpy()
+            tgts = graph.csr.targets[:m_real].to(torch.int32).cpu().numpy()
+            cp.count(bytes=_nbytes(srcs, tgts))
+        # ascending-degree rank bounds forward degree by the arboricity
+        nat = tc_orient_native(srcs, tgts, n)
+        if nat is not None:
+            a, b = nat[0].astype(np.int64), nat[1]
+        else:
+            srcs, tgts = srcs.astype(np.int64), tgts.astype(np.int64)
+            deg = np.bincount(srcs, minlength=n)
+            order = np.argsort(deg, kind="stable")
+            rank = np.empty(n, np.int64)
+            rank[order] = np.arange(n)
+            a = rank[srcs]
+            b = rank[tgts]
+            fwd = a < b  # each edge once; self-loops drop (equal rank)
+            a, b = a[fwd], b[fwd]
+            o = np.lexsort((b, a))
+            a, b = a[o], b[o].astype(np.int32)
+        sp.count(forward_edges=int(a.size), native=int(nat is not None))
     t1 = time.perf_counter()
-    mats, cross = _pack_chunks(a, b.astype(np.int32))
-    fdeg = np.bincount(a).astype(np.int64)
+    with profile.span("triangle_count.pack") as sp:
+        mats, cross = _pack_chunks(a, b.astype(np.int32))
+        fdeg = np.bincount(a).astype(np.int64)
+        wedges = int((fdeg * (fdeg - 1) // 2).sum())
+        sp.count(wedges=wedges,
+                 rows=sum(m.shape[0] for m in mats.values()))
     phases.update(orient_s=t1 - t0, pack_s=time.perf_counter() - t1,
-                  forward_edges=int(a.size),
-                  wedges=int((fdeg * (fdeg - 1) // 2).sum()))
+                  forward_edges=int(a.size), wedges=wedges)
     return mats, cross, a, b
 
 

@@ -19,6 +19,7 @@ import torch
 
 import graph_tpu_torch as gtt
 from graph_tpu_torch import api, profile
+from graph_tpu_torch.algos import triangle_count as ttc
 from graph_tpu_torch.engine import kernels, loop
 from graph_tpu_torch.engine.engine import EdgeEngine
 from graph_tpu_torch.engine.plan import PLAN_CACHE_ENV
@@ -323,6 +324,65 @@ def test_record_nests_and_ends_with_its_block():
     assert [s["name"] for s in profile.spans()] == ["recorded"]
 
 
+def _tc_graph(device="cpu"):
+    """A DEDUPLICATED undirected graph with self-loops and repeated pairs
+    in its input, and some 3,600 triangles."""
+    src, dst = _edges(seed=9, n=200, m=3000)
+    return api.Graph.from_numpy(np.stack([src, dst], axis=1),
+                                layout=api.Layout.Deduplicated, device=device)
+
+
+def _native_orients():
+    pair = np.array([0], np.int32), np.array([1], np.int32)
+    return ttc.tc_orient_native(*pair, 2) is not None
+
+
+@pytest.mark.parametrize("native", [True, False])
+def test_triangle_count_spans_hold_its_phases(native, monkeypatch):
+    if not native:
+        monkeypatch.setattr(ttc, "tc_orient_native", lambda *a: None)
+    g = _tc_graph()
+    mats, cross, a, b = ttc._prepare_distinct(g._g, {})
+    with profile.record():
+        res = g.global_triangle_count()
+        phases = ttc.global_triangle_count(g._g).phases
+    spans = profile.spans()
+    api_span, = _named(spans, "api.global_triangle_count")
+    run = [s for s in _named(spans, "triangle_count.run")
+           if s["parent"] == api_span["id"]]
+    assert len(run) == 1 and res.triangles > 0
+    run = run[0]
+    kids = {s["name"]: s for s in spans if s["parent"] == run["id"]}
+    assert sorted(kids) == ["triangle_count.join", "triangle_count.orient",
+                            "triangle_count.pack"]
+    orient, pack, join = (kids[f"triangle_count.{k}"]
+                          for k in ("orient", "pack", "join"))
+    copy, = [s for s in spans if s["parent"] == orient["id"]]
+    m_real = int(g._g.csr.offsets[-1])
+    assert copy["name"] == "triangle_count.to_host"
+    assert copy["counters"] == {"bytes": 2 * 4 * m_real}
+    assert run["counters"] == {k: phases[k] for k in (
+        "forward_edges", "wedges", "wedge_slots", "slabs")}
+    assert orient["counters"] == {
+        "forward_edges": phases["forward_edges"],
+        "native": int(native and _native_orients())}
+    assert pack["counters"] == {
+        "wedges": phases["wedges"],
+        "rows": sum(m.shape[0] for m in mats.values())}
+    assert join["counters"] == {
+        "wedge_slots": phases["wedge_slots"], "slabs": phases["slabs"],
+        "bytes": a.nbytes + b.nbytes + sum(m.nbytes for m in mats.values())
+        + sum(m.nbytes for m in cross or ())}
+    assert all(s["request"] == api_span["id"]
+               for s in (run, orient, copy, pack, join))
+
+
+def test_triangle_count_records_nothing_with_spans_off():
+    g = _tc_graph()
+    assert g.global_triangle_count().triangles > 0
+    assert profile.spans() == []
+
+
 # ----------------------------------------------------------- on the card
 
 
@@ -443,3 +503,14 @@ def test_h2d_spans_carry_bytes_and_device_time_on_card(cuda_device):
     for s in h2d:
         assert s["counters"]["bytes"] == 8 << 16
         assert s["counters"]["device_ms"] > 0
+
+
+@pytest.mark.requires_cuda
+def test_triangle_count_join_span_times_the_card(cuda_device):
+    g = _tc_graph(cuda_device)
+    with profile.record():
+        g.global_triangle_count()
+    join, = _named(profile.spans(), "triangle_count.join")
+    c = join["counters"]
+    assert 0 < c["device_ms"] <= (join["end_us"] - join["start_us"]) * 1e-3
+    assert c["wedge_slots"] > 0 and c["slabs"] >= 1
