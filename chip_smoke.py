@@ -42,9 +42,9 @@ m = 67,108,864, seed 42):
   its plan to a cache of the phase's own, and the CLI reads it back;
 * ``global_triangle_count`` on the same edges built DEDUPLICATED on the
   card (distinct triangles), unchanged by ``make_degree_ordered``, with
-  its host preparation, card seconds and one slab of each join design
+  its preparation, card seconds and one slab of each join design
   timed; at scale 16 the distinct count against scipy and the SORTED
-  multiset count against a host model; the native orientation must load;
+  multiset count against a host model;
 * the multi-device paths on a mesh of four shards sharing the card
   (``Mesh([cuda] * 4)``): the row-block engines of PageRank, WCC and
   SSSP built (partition, halo and plans timed) and their ``spmv``,
@@ -1097,14 +1097,12 @@ def triangles_phase(gtt, dev, src, dst, n):
     unchanged by the degree relabel; the two join designs timed on one
     full slab; at scale 16 the distinct count against scipy (and the
     sort join's count against the lookup join's) and the multiset count
-    (SORTED, relabeled) against a host model.  Fails unless the native
-    orientation library loaded.  Returns the scale-22 count and its
-    DEDUPLICATED graph."""
+    (SORTED, relabeled) against a host model.  Returns the scale-22 count
+    and its DEDUPLICATED graph."""
     import torch
 
     from graph_tpu_torch.algos import triangle_count as tc
     from graph_tpu_torch.generate import host_rmat
-    from graph_tpu_torch.native import host_csr
 
     out = {}
     t0 = time.perf_counter()
@@ -1112,7 +1110,7 @@ def triangles_phase(gtt, dev, src, dst, n):
                               layout=gtt.CsrLayout.DEDUPLICATED)
     _sync()
     out["build_undirected_s"] = time.perf_counter() - t0
-    # keep the host preparation the count makes, for the per-slab timing
+    # keep the preparation the count makes, for the per-slab timing
     prepare, kept = tc._prepare_distinct, []
     tc._prepare_distinct = lambda *a: kept.append(prepare(*a)) or kept[-1]
     try:
@@ -1123,9 +1121,6 @@ def triangles_phase(gtt, dev, src, dst, n):
         out["count_s"] = time.perf_counter() - t0
     finally:
         tc._prepare_distinct = prepare
-    check(host_csr.load_error() is None,
-          f"triangles: the native orientation did not load: "
-          f"{host_csr.load_error()}")
     check(res.triangles > 0, f"triangles: counted {res.triangles}")
     out.update(triangles=res.triangles, micros=res.micros, **res.phases)
     out["wedges_per_s_on_card"] = res.phases["wedges"] / res.phases["join_s"]
@@ -1142,11 +1137,11 @@ def triangles_phase(gtt, dev, src, dst, n):
 
     # the two joins on one full slab of the 64-wide class, same wedges
     mats, _, a, b = kept[0]
-    mat = torch.from_numpy(mats[64]).to(dev)
+    mat = mats[64]
     rows = max(1, tc.SLAB // (64 * 63 // 2))
     v, w = tc._emit_intra(mat[:rows], 64)
     keys = tc._edge_keys(a, b, dev)
-    ev, ew = (torch.from_numpy(x).to(dev) for x in tc._pad_edge_keys(a, b))
+    ev, ew = tc._pad_edge_keys(a, b, dev)
     lookup = int(tc._lookup_count(v, w, keys))
     check(int(tc._join_count(v, w, ev, ew)) == lookup,
           "triangles: the sort join and the lookup join disagree on a slab")
@@ -1171,7 +1166,7 @@ def triangles_phase(gtt, dev, src, dst, n):
     check(distinct.triangles == want,
           f"triangles at scale {TC_CHECK_SCALE}: {distinct.triangles}, "
           f"scipy {want}")
-    prep = tc._prepare_distinct(cg, {})
+    prep = tc._prepare_distinct(cg, {}, dev)
     joins = {}
     for join in tc.JOINS:
         _sync()

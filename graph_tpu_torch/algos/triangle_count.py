@@ -1,17 +1,20 @@
-"""Global triangle count: orient on the host, join wedges on the device.
+"""Global triangle count: orient, pack and join wedges on the device.
 
 Counterpart of ``graph_tpu.algos.triangle_count`` (reference analog:
 ``global_triangle_count``, crates/algos/src/triangle_count.rs:22-86).
-The work is ``graph_tpu``'s, in three steps:
+The work is ``graph_tpu``'s, in three steps, all where the join runs
+(the card, or the CPU when asked for):
 
-1. **Orient** (host): rank nodes by ascending degree and keep each edge
-   from its lower to its higher rank (``tc_orient_native``, numpy without
-   the library).  Forward degree is then bounded by about sqrt(m), so the
-   wedge count W = sum C(d+, 2) stays near 50 m on power-law graphs.
-2. **Pack** (host): forward lists packed into per-degree-class chunk
-   matrices (rows padded with ``SENT`` to caps 4/8/16/32/64; longer lists
-   split into 64-wide chunks whose cross pairs are outer products).
-3. **Emit and join** (device), about ``SLAB`` wedges per step: wedges are
+1. **Orient**: rank nodes by ascending degree (ties by id) and keep each
+   edge from its lower to its higher rank, sorted by (rank, rank)
+   (:func:`_orient`).  Forward degree is then bounded by about sqrt(m),
+   so the wedge count W = sum C(d+, 2) stays near 50 m on power-law
+   graphs.
+2. **Pack**: forward lists packed into per-degree-class chunk matrices
+   (rows padded with ``SENT`` to caps 4/8/16/32/64; longer lists split
+   into 64-wide chunks whose cross pairs are outer products;
+   :func:`_pack_chunks`), bit for bit ``graph_tpu``'s host packing.
+3. **Emit and join**, about ``SLAB`` wedges per step: wedges are
    emitted by slices and broadcasts (:func:`_emit_intra`,
    :func:`_emit_cross`), and a wedge (v, w) counts when (v, w) is an edge.
 
@@ -21,7 +24,7 @@ wedges together with all edge keys (:func:`_join_count`, kept here as
 ``join="sort"``).  A GPU searches well: the edge keys are sorted once
 and each wedge is looked up with ``torch.searchsorted``
 (:func:`_lookup_count`, ``join="lookup"``, the default).  Per-slab counts
-stay on the device; the host reads the total once.
+stay on the device; the host reads sizes and the total once.
 
 Layout semantics (the reference's):
 
@@ -31,18 +34,18 @@ Layout semantics (the reference's):
   ``v in N(u), v <= u`` and ``w in N(v), w <= v``, add 1 if ``w in
   N(u)``.  The mate golden (scale 8 -> 227,874) is this multiset count,
   computed as G(v) x F(v) occurrence cross products joined against the
-  distinct adjacency keys.
+  distinct adjacency keys; its preparation is on the host.
 * UNSORTED: rejected (the reference's merge assumes sorted lists).
 
 Spans (:mod:`graph_tpu_torch.profile`, DEDUPLICATED path on one
 device): ``triangle_count.run`` around the timed region (counters
 ``forward_edges``, ``wedges``, ``wedge_slots``, ``slabs``, as in the
-result's ``phases``); inside it ``triangle_count.orient`` (the read-back
-and the orientation; ``forward_edges``, ``native``) with
-``triangle_count.to_host`` (the two copies; ``bytes``),
-``triangle_count.pack`` (``wedges``, ``rows``) and
-``triangle_count.join`` (``wedge_slots``, ``slabs``, ``bytes`` sent to
-the device, and ``device_ms`` from CUDA events on a card).
+result's ``phases``); inside it ``triangle_count.orient``
+(``forward_edges``, and ``on_card``: 1 where the device is a card),
+``triangle_count.pack`` (``wedges``, ``rows``), each ending once its
+device work has, and ``triangle_count.join`` (``wedge_slots``,
+``slabs``, ``bytes`` sent to the device, and ``device_ms`` from CUDA
+events on a card).
 
 Under a default mesh of more than one shard
 (:func:`graph_tpu_torch.parallel.use_mesh`) the DEDUPLICATED count
@@ -62,9 +65,8 @@ import torch
 
 from graph_tpu_torch import profile
 from graph_tpu_torch.algos.pagerank import _default_mesh
-from graph_tpu_torch.device import run_device
-from graph_tpu_torch.graph.csr import CsrLayout, UndirectedCsrGraph
-from graph_tpu_torch.native.host_csr import tc_orient_native
+from graph_tpu_torch.device import run_device, synchronize
+from graph_tpu_torch.graph.csr import Csr, CsrLayout, UndirectedCsrGraph
 
 #: Degree-class caps; lists longer than the last cap split into chunks.
 CLASS_CAPS = (4, 8, 16, 32, 64)
@@ -140,8 +142,8 @@ def _join_count(v: torch.Tensor, w: torch.Tensor, ev: torch.Tensor,
 def _edge_keys(ev, ew, device: torch.device) -> torch.Tensor:
     """Edge pairs as sorted int64 keys ``v << 30 | w`` on ``device``
     (ids below ``SENT`` = 2**29, so a key holds both)."""
-    ev = torch.as_tensor(np.asarray(ev), device=device).long()
-    ew = torch.as_tensor(np.asarray(ew), device=device).long()
+    ev = torch.as_tensor(ev, device=device).long()
+    ew = torch.as_tensor(ew, device=device).long()
     return torch.sort((ev << 30) | ew).values
 
 
@@ -156,85 +158,114 @@ def _lookup_count(v: torch.Tensor, w: torch.Tensor,
 
 
 # ---------------------------------------------------------------------------
-# host-side packing
+# preparation (where the join runs)
 
 
-def _pack_chunks(heads: np.ndarray, items: np.ndarray):
-    """Pack ragged lists (grouped by ``heads``, already sorted) into
-    per-degree-class chunk matrices.
+def _ragged(counts: torch.Tensor):
+    """For segments of lengths ``counts``, each element's segment and its
+    place in it, over all ``counts.sum()`` elements in segment order."""
+    seg = torch.repeat_interleave(
+        torch.arange(counts.numel(), device=counts.device), counts)
+    first = torch.cumsum(counts, 0) - counts
+    return seg, torch.arange(seg.numel(), device=seg.device) - first[seg]
 
-    Returns {cap: (rows, cap) int32 matrix} plus, for lists longer than
-    the top cap, the (pairs_a, pairs_b) chunk-row matrices whose outer
-    products cover cross-chunk pairs.
-    """
+
+def _orient(csr: Csr, m_real: int, device: torch.device):
+    """Rank nodes by ascending degree, ties by id (a stable sort, as
+    ``graph_tpu``'s counting sort ranks them), and keep the edges whose
+    source ranks below their target, sorted by (rank(src), rank(dst)).
+
+    Reads the real edges ``[:m_real]`` of ``csr`` on ``device``.  Returns
+    (a, b): the forward edges' ranks, int64 and int32 tensors there."""
+    n = csr.node_count
+    deg = torch.diff(csr.offsets.to(device))
+    order = torch.sort(deg, stable=True).indices
+    rank = torch.empty(n, dtype=torch.int32, device=device)
+    rank[order] = torch.arange(n, dtype=torch.int32, device=device)
+    a = rank.index_select(0, csr.sources[:m_real].to(device))
+    b = rank.index_select(0, csr.targets[:m_real].to(device))
+    # ranks lie below SENT = 2**29, so one key holds the pair; a
+    # DEDUPLICATED graph's keys are distinct, so any sort orders them
+    key = torch.sort(((a.long() << 30) | b)[a < b]).values
+    return key >> 30, (key & ((1 << 30) - 1)).to(torch.int32)
+
+
+def _pack_chunks(heads: torch.Tensor, items: torch.Tensor, n: int):
+    """Pack ragged lists (grouped by ``heads`` below ``n``, already
+    sorted) into per-degree-class chunk matrices, on their device.
+
+    ``graph_tpu``'s ``_pack_chunks``, bit for bit: a list of length d,
+    2 <= d <= 32, is one row of the smallest cap at least d; a longer one
+    is ceil(d / 64) rows of 64; rows follow their heads' order and pad
+    with ``SENT``.  All matrices are views of one buffer, filled by one
+    scatter.  Returns ({cap: (rows, cap) int32 matrix}, the (pairs_a,
+    pairs_b) chunk-row matrices whose outer products cover the cross-chunk
+    pairs of the long lists, or None, and the lists' lengths (n,))."""
+    dev = heads.device
     top = CLASS_CAPS[-1]
-    n = heads.max() + 1 if heads.size else 0
-    deg = np.bincount(heads, minlength=n).astype(np.int64)
-    starts = np.concatenate([[0], np.cumsum(deg)])
-    pos = np.arange(items.size, dtype=np.int64) - starts[heads]
+    deg = torch.bincount(heads, minlength=n)
+    # a node's class: 0 for lists of length < 2 (no pairs), else
+    # 1 + the index of its cap in CLASS_CAPS
+    cls = torch.bucketize(deg, torch.tensor((1,) + CLASS_CAPS[:-1],
+                                            device=dev))
+    caps = torch.tensor((0,) + CLASS_CAPS, device=dev)[cls]
+    rows = torch.where(cls == len(CLASS_CAPS), (deg + top - 1) // top,
+                       (cls > 0).long())
+    # slots laid out class by class, nodes in order within a class
+    by_class = torch.sort(cls, stable=True).indices
+    slots = (rows * caps)[by_class]
+    base = torch.empty_like(deg)
+    base[by_class] = torch.cumsum(slots, 0) - slots
+    per_class = torch.zeros(len(CLASS_CAPS) + 1, dtype=torch.int64,
+                            device=dev).index_add_(0, cls, rows).tolist()
+    total = sum(r * c for r, c in zip(per_class[1:], CLASS_CAPS))
+    flat = torch.full((total,), SENT, dtype=torch.int32, device=dev)
+    starts = torch.cumsum(deg, 0) - deg
+    keep = cls.index_select(0, heads) > 0
+    at = (torch.arange(heads.numel(), device=dev)
+          + (base - starts).index_select(0, heads))
+    flat[at[keep]] = items[keep]
 
-    mats = {}
-    prev = 1  # lists of length < 2 have no pairs
-    for cap in CLASS_CAPS[:-1]:
-        sel = (deg > prev) & (deg <= cap)
-        prev = cap
-        nodes = np.nonzero(sel)[0]
-        if nodes.size == 0:
-            continue
-        row_of = np.full(n, -1, np.int64)
-        row_of[nodes] = np.arange(nodes.size)
-        mask = sel[heads]
-        mat = np.full((nodes.size, cap), SENT, np.int32)
-        mat[row_of[heads[mask]], pos[mask]] = items[mask]
-        mats[cap] = mat
-
-    # top class: chunk rows of width `top`, one node spans several rows
-    sel = deg > CLASS_CAPS[-2]
-    nodes = np.nonzero(sel)[0]
+    mats, off = {}, 0
+    for r, cap in zip(per_class[1:], CLASS_CAPS):
+        if r:
+            mats[cap] = flat[off: off + r * cap].view(r, cap)
+        top_base, off = off, off + r * cap
     cross = None
-    if nodes.size:
-        nchunks = -(-deg[nodes] // top)
-        row_start = np.concatenate([[0], np.cumsum(nchunks)])
-        row_of = np.full(n, -1, np.int64)
-        row_of[nodes] = row_start[:-1]
-        mask = sel[heads]
-        rows = int(row_start[-1])
-        mat = np.full((rows, top), SENT, np.int32)
-        p = pos[mask]
-        mat[row_of[heads[mask]] + p // top, p % top] = items[mask]
-        mats[top] = mat
-        # cross-chunk row pairs (a < b) per node, grouped by chunk count
-        # so the pair expansion is one broadcast per distinct count
-        pa, pb = [], []
-        for v in np.unique(nchunks):
-            if v < 2:
-                continue
-            r0s = row_start[:-1][nchunks == v]
-            ia, ib = np.triu_indices(int(v), k=1)
-            pa.append((r0s[:, None] + ia[None, :]).ravel())
-            pb.append((r0s[:, None] + ib[None, :]).ravel())
-        if pa:
-            pa = np.concatenate(pa)
-            pb = np.concatenate(pb)
-            cross = (mat[pa], mat[pb])
-    return mats, cross
+    if top in mats:
+        # cross-chunk row pairs (i < j) of each long list: lists grouped
+        # by chunk count, in head order within a group, pairs row-major
+        long_ = torch.nonzero((cls == len(CLASS_CAPS)) & (rows > 1))[:, 0]
+        if long_.numel():
+            nc = rows[long_]
+            group = torch.sort(nc, stable=True).indices
+            nc = nc[group]
+            r0 = (base[long_[group]] - top_base) // top
+            k, i = _ragged(nc - 1)
+            r, dj = _ragged(nc[k] - 1 - i)
+            pa = (r0[k] + i)[r]
+            mat = mats[top]
+            cross = (mat[pa], mat[pa + 1 + dj])
+    return mats, cross, deg
 
 
-def _nbytes(*arrays) -> int:
-    return sum(int(x.nbytes) for x in arrays)
+def _sent_bytes(device: torch.device, *arrays) -> int:
+    """The bytes of ``arrays`` that do not lie on ``device``."""
+    return sum(int(x.nbytes) for x in arrays
+               if not isinstance(x, torch.Tensor) or x.device != device)
 
 
-def _pad_edge_keys(ev, ew):
-    """Pad edge keys to a 2^20 multiple with a sentinel distinct from the
-    wedge pad (so pad wedges never match pad edges), as ``graph_tpu``
-    does for its sort join's shapes."""
+def _pad_edge_keys(ev, ew, device: torch.device):
+    """Edge keys padded to a 2^20 multiple with a sentinel distinct from
+    the wedge pad (so pad wedges never match pad edges), as
+    ``graph_tpu`` does for its sort join's shapes: int32 tensors on
+    ``device``."""
     unit = 1 << 20
-    me = max(unit, -(-int(ev.size) // unit) * unit)
-    ev = np.pad(np.asarray(ev, np.int64), (0, me - ev.size),
-                constant_values=SENT + 1)
-    ew = np.pad(np.asarray(ew, np.int64), (0, me - ew.size),
-                constant_values=SENT + 1)
-    return ev.astype(np.int32), ew.astype(np.int32)
+    m = len(ev)
+    pad = torch.full((max(unit, -(-m // unit) * unit) - m,), SENT + 1,
+                     dtype=torch.int32, device=device)
+    return tuple(torch.cat([torch.as_tensor(x, device=device).to(
+        torch.int32), pad]) for x in (ev, ew))
 
 
 def _groups(pairs_per_row: int, rows: int):
@@ -251,25 +282,25 @@ def _run_join(mats, cross, ev, ew, cross_full=None, *,
 
     ``mats``/``cross`` hold the intra-list pairs (distinct path);
     ``cross_full`` (multiset path) are (A, B) matrices whose outer
-    products are the wedges G(v) x F(v).  Each matrix goes to the device
-    once; each group of rows emits about ``SLAB`` wedge slots and joins
-    them (``join``: see :data:`JOINS`).  Counts add up on the device and
-    the host reads the total once.  ``phases``, when given, gets the
+    products are the wedges G(v) x F(v).  Tensors or host arrays: each
+    matrix not on the device goes there once; each group of rows emits
+    about ``SLAB`` wedge slots and joins them (``join``: see
+    :data:`JOINS`).  Counts add up on the device and the host reads the
+    total once.  ``phases``, when given, gets the
     wedge slots and join steps.
     """
     if join == "lookup":
         keys = _edge_keys(ev, ew, device)
         count = lambda v, w: _lookup_count(v, w, keys)  # noqa: E731
     elif join == "sort":
-        pev, pew = (torch.from_numpy(a).to(device)
-                    for a in _pad_edge_keys(ev, ew))
+        pev, pew = _pad_edge_keys(ev, ew, device)
         count = lambda v, w: _join_count(v, w, pev, pew)  # noqa: E731
     else:
         raise ValueError(f"join must be one of {JOINS}, got {join!r}")
     total = torch.zeros((), dtype=torch.int64, device=device)
     slots = steps = 0
     for cap, mat in (mats or {}).items():
-        mat_d = torch.from_numpy(mat).to(device)
+        mat_d = torch.as_tensor(mat, device=device)
         for r0, r1 in _groups(cap * (cap - 1) // 2, mat.shape[0]):
             v, w = _emit_intra(mat_d[r0:r1], cap)
             total += count(v, w)
@@ -277,7 +308,7 @@ def _run_join(mats, cross, ev, ew, cross_full=None, *,
     for pair in (cross, cross_full):
         if pair is None:
             continue
-        a_d, b_d = (torch.from_numpy(m).to(device) for m in pair)
+        a_d, b_d = (torch.as_tensor(m, device=device) for m in pair)
         per_row = a_d.shape[1] * b_d.shape[1]
         for r0, r1 in _groups(per_row, a_d.shape[0]):
             v, w = _emit_cross(a_d[r0:r1], b_d[r0:r1])
@@ -320,11 +351,11 @@ def global_triangle_count(graph: UndirectedCsrGraph, *,
         from graph_tpu_torch.parallel.tc import triangle_count_sharded
 
         return triangle_count_sharded(graph, mesh)
-    device = run_device(graph, device)
+    device = _concrete(run_device(graph, device))
     with profile.span("triangle_count.run") as sp:
         start = time.perf_counter()
         phases = {}
-        prep = _prepare_distinct(graph, phases)
+        prep = _prepare_distinct(graph, phases, device)
         count = 0
         if prep is not None:
             mats, cross, a, b = prep
@@ -336,8 +367,8 @@ def global_triangle_count(graph: UndirectedCsrGraph, *,
                 if jp:
                     jp.count(wedge_slots=phases["wedge_slots"],
                              slabs=phases["slabs"],
-                             bytes=_nbytes(a, b, *mats.values(),
-                                           *(cross or ())))
+                             bytes=_sent_bytes(device, a, b, *mats.values(),
+                                               *(cross or ())))
             phases["join_s"] = time.perf_counter() - t0
         micros = int((time.perf_counter() - start) * 1e6)
         if sp:
@@ -350,13 +381,22 @@ def _check_node_count(n: int) -> None:
         raise ValueError(f"triangle count supports node_count < 2^29, got {n}")
 
 
-def _prepare_distinct(graph: UndirectedCsrGraph, phases: dict):
-    """Host preparation for distinct counting: orient, then pack.
+def _concrete(device: torch.device) -> torch.device:
+    """``device`` with the index its tensors report (``cuda`` is the
+    current card)."""
+    if device.type == "cuda" and device.index is None:
+        return torch.device("cuda", torch.cuda.current_device())
+    return device
 
-    Returns (mats, cross, a, b): the degree-class chunk matrices, the
-    cross-chunk row pairs and the oriented edge keys; or None for an
-    empty graph.  Records its seconds, forward edges and wedges in
-    ``phases``."""
+
+def _prepare_distinct(graph: UndirectedCsrGraph, phases: dict,
+                      device: torch.device):
+    """Preparation for distinct counting on ``device``: orient, then pack.
+
+    Returns (mats, cross, a, b), tensors on ``device``: the degree-class
+    chunk matrices, the cross-chunk row pairs and the oriented edge keys;
+    or None for an empty graph.  Each phase ends once its device work
+    has; records their seconds, forward edges and wedges in ``phases``."""
     t0 = time.perf_counter()
     n = graph.node_count
     # a padded graph carries a sentinel tail: the real edge count is
@@ -366,37 +406,20 @@ def _prepare_distinct(graph: UndirectedCsrGraph, phases: dict):
         return None
     _check_node_count(n)
     with profile.span("triangle_count.orient") as sp:
-        with profile.span("triangle_count.to_host") as cp:
-            # ids below 2**29 fit int32: cast where the graph lies, copy half
-            srcs = graph.csr.sources[:m_real].to(torch.int32).cpu().numpy()
-            tgts = graph.csr.targets[:m_real].to(torch.int32).cpu().numpy()
-            cp.count(bytes=_nbytes(srcs, tgts))
         # ascending-degree rank bounds forward degree by the arboricity
-        nat = tc_orient_native(srcs, tgts, n)
-        if nat is not None:
-            a, b = nat[0].astype(np.int64), nat[1]
-        else:
-            srcs, tgts = srcs.astype(np.int64), tgts.astype(np.int64)
-            deg = np.bincount(srcs, minlength=n)
-            order = np.argsort(deg, kind="stable")
-            rank = np.empty(n, np.int64)
-            rank[order] = np.arange(n)
-            a = rank[srcs]
-            b = rank[tgts]
-            fwd = a < b  # each edge once; self-loops drop (equal rank)
-            a, b = a[fwd], b[fwd]
-            o = np.lexsort((b, a))
-            a, b = a[o], b[o].astype(np.int32)
-        sp.count(forward_edges=int(a.size), native=int(nat is not None))
+        a, b = _orient(graph.csr, m_real, device)
+        synchronize(device)
+        sp.count(forward_edges=int(a.numel()),
+                 on_card=int(device.type == "cuda"))
     t1 = time.perf_counter()
     with profile.span("triangle_count.pack") as sp:
-        mats, cross = _pack_chunks(a, b.astype(np.int32))
-        fdeg = np.bincount(a).astype(np.int64)
+        mats, cross, fdeg = _pack_chunks(a, b, n)
         wedges = int((fdeg * (fdeg - 1) // 2).sum())
+        synchronize(device)
         sp.count(wedges=wedges,
                  rows=sum(m.shape[0] for m in mats.values()))
     phases.update(orient_s=t1 - t0, pack_s=time.perf_counter() - t1,
-                  forward_edges=int(a.size), wedges=wedges)
+                  forward_edges=int(a.numel()), wedges=wedges)
     return mats, cross, a, b
 
 

@@ -189,11 +189,7 @@ def _load(args, undirected=False, weighted=False):
     b = (GraphBuilder(device=device).id_dtype(id_dtype).file_format(fmt)
          .path(args.path))
     if undirected:
-        b = b.csr_layout(layout)
-        # triangle counting's orientation reads the edge list on the
-        # host; a host-resident build skips the round trip to the card
-        host = getattr(args, "algorithm", "") == "triangle-count"
-        return b.build_undirected(host=host)
+        return b.csr_layout(layout).build_undirected()
     return b.build_directed()
 
 
@@ -252,8 +248,6 @@ def main(argv=None):
             log.info("Relabeled graph in %.3fs", time.perf_counter() - t0)
 
         def run():
-            # the graph is host-resident: the join runs on --platform's
-            # device
             res = global_triangle_count(g, device=device)
             log.info("Computed %s triangles", f"{res.triangles:,}")
 

@@ -199,10 +199,10 @@ def build_undirected_host(
     """Host-resident undirected build: the CSR as CPU tensors, marked
     ``host`` (see :class:`UndirectedCsrGraph`).
 
-    For pipelines whose next step reads the edge list back on the host
-    (triangle counting above all), so that the graph never makes a round
-    trip through the card.  An algorithm given the result still runs on
-    the card unless its caller passes ``device="cpu"``.  Results are
+    For pipelines whose next step reads the edge list back on the host,
+    so that the graph never makes a round trip through the card.  An
+    algorithm given the result still runs on the card unless its caller
+    passes ``device="cpu"``.  Results are
     identical to :func:`build_undirected`'s: UNSORTED rows keep their
     input order, as the device build's stable sort does.
     """

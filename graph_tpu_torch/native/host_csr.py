@@ -5,7 +5,9 @@ Counterpart of ``graph_tpu.native.host_csr`` (``build_undirected_native``,
 ``tc_orient_native``); the C++ is the port's own copy,
 ``native/host_csr.cpp``.  Each returns None when the library cannot be
 built; callers then use the numpy paths, which give the same results, and
-:func:`load_error` says why.
+:func:`load_error` says why.  The triangle count itself orients on its
+device (:mod:`graph_tpu_torch.algos.triangle_count`); the tests hold
+``tc_orient_native`` and that orientation against ``graph_tpu``'s.
 """
 
 from __future__ import annotations

@@ -6,8 +6,10 @@ additively, so any disjoint partition of the wedge-emitting chunk rows
 is valid: each shard joins its contiguous block of every degree-class
 matrix (and of the cross-chunk pairs) against the edge keys, with the
 single-device join (:func:`~graph_tpu_torch.algos.triangle_count._run_join`),
-and the per-shard counts add up exactly.  The host preparation
-(orientation and packing) is the single-device path's.
+and the per-shard counts add up exactly.  The preparation (orientation
+and packing) is the single-device path's, made where a one-device count
+would run (:func:`~graph_tpu_torch.device.run_device`); each shard takes
+its blocks from there.
 """
 
 from __future__ import annotations
@@ -16,6 +18,7 @@ import time
 
 from graph_tpu_torch.algos.triangle_count import (
     TriangleCountResult, _prepare_distinct, _prepare_multiset, _run_join)
+from graph_tpu_torch.device import run_device
 from graph_tpu_torch.graph.csr import CsrLayout, UndirectedCsrGraph
 from graph_tpu_torch.parallel.mesh import NODES_AXIS, Mesh
 
@@ -66,7 +69,7 @@ def triangle_count_sharded(graph: UndirectedCsrGraph, mesh: Mesh,
                                   phases=phases)
             phases["join_s"] = time.perf_counter() - t0
     elif graph.layout is CsrLayout.DEDUPLICATED:
-        prep = _prepare_distinct(graph, phases)
+        prep = _prepare_distinct(graph, phases, run_device(graph))
         if prep is not None:
             mats, cross, a, b = prep
             t0 = time.perf_counter()

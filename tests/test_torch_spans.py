@@ -332,24 +332,31 @@ def _tc_graph(device="cpu"):
                                 layout=api.Layout.Deduplicated, device=device)
 
 
-def _native_orients():
-    pair = np.array([0], np.int32), np.array([1], np.int32)
-    return ttc.tc_orient_native(*pair, 2) is not None
-
-
-@pytest.mark.parametrize("native", [True, False])
-def test_triangle_count_spans_hold_its_phases(native, monkeypatch):
-    if not native:
-        monkeypatch.setattr(ttc, "tc_orient_native", lambda *a: None)
+@pytest.mark.parametrize("host", [False, True])
+def test_triangle_count_spans_hold_its_phases(host):
+    """The count's spans and counters, from a graph on the CPU (through the
+    API) and from a host-resident graph counted on the CPU.  Either way
+    the preparation runs where the join runs: ``on_card`` 0, no child
+    span, and nothing sent to the join."""
     g = _tc_graph()
-    mats, cross, a, b = ttc._prepare_distinct(g._g, {})
+    if host:
+        src, dst = _edges(seed=9, n=200, m=3000)
+        inner = gtt.build_undirected_host(src, dst,
+                                          layout=gtt.CsrLayout.DEDUPLICATED)
+
+        def count():
+            return ttc.global_triangle_count(inner, device="cpu")
+    else:
+        inner, count = g._g, g.global_triangle_count
+    mats, _, _, _ = ttc._prepare_distinct(inner, {}, torch.device("cpu"))
     with profile.record():
-        res = g.global_triangle_count()
-        phases = ttc.global_triangle_count(g._g).phases
+        res = count()
+        phases = ttc.global_triangle_count(inner, device="cpu").phases
     spans = profile.spans()
-    api_span, = _named(spans, "api.global_triangle_count")
+    root = (_named(spans, "triangle_count.run") if host
+            else _named(spans, "api.global_triangle_count"))[0]
     run = [s for s in _named(spans, "triangle_count.run")
-           if s["parent"] == api_span["id"]]
+           if s["request"] == root["id"]]
     assert len(run) == 1 and res.triangles > 0
     run = run[0]
     kids = {s["name"]: s for s in spans if s["parent"] == run["id"]}
@@ -357,24 +364,19 @@ def test_triangle_count_spans_hold_its_phases(native, monkeypatch):
                             "triangle_count.pack"]
     orient, pack, join = (kids[f"triangle_count.{k}"]
                           for k in ("orient", "pack", "join"))
-    copy, = [s for s in spans if s["parent"] == orient["id"]]
-    m_real = int(g._g.csr.offsets[-1])
-    assert copy["name"] == "triangle_count.to_host"
-    assert copy["counters"] == {"bytes": 2 * 4 * m_real}
+    assert not [s for s in spans if s["parent"] == orient["id"]]
     assert run["counters"] == {k: phases[k] for k in (
         "forward_edges", "wedges", "wedge_slots", "slabs")}
     assert orient["counters"] == {
-        "forward_edges": phases["forward_edges"],
-        "native": int(native and _native_orients())}
+        "forward_edges": phases["forward_edges"], "on_card": 0}
     assert pack["counters"] == {
         "wedges": phases["wedges"],
         "rows": sum(m.shape[0] for m in mats.values())}
     assert join["counters"] == {
         "wedge_slots": phases["wedge_slots"], "slabs": phases["slabs"],
-        "bytes": a.nbytes + b.nbytes + sum(m.nbytes for m in mats.values())
-        + sum(m.nbytes for m in cross or ())}
-    assert all(s["request"] == api_span["id"]
-               for s in (run, orient, copy, pack, join))
+        "bytes": 0}
+    assert all(s["request"] == root["id"]
+               for s in (run, orient, pack, join))
 
 
 def test_triangle_count_records_nothing_with_spans_off():
@@ -514,3 +516,34 @@ def test_triangle_count_join_span_times_the_card(cuda_device):
     c = join["counters"]
     assert 0 < c["device_ms"] <= (join["end_us"] - join["start_us"]) * 1e-3
     assert c["wedge_slots"] > 0 and c["slabs"] >= 1
+
+
+@pytest.mark.requires_cuda
+def test_triangle_count_prepares_on_card(cuda_device):
+    """At RMAT scale 16, DEDUPLICATED: the count on the card equals the
+    CPU's; the preparation's tensors lie on the card, the orient span
+    reads ``on_card`` 1 and has no child, and the join is sent nothing;
+    four shards of ``parallel.tc`` on the one card count the same."""
+    from graph_tpu_torch.generate import host_rmat
+    from graph_tpu_torch.parallel.mesh import Mesh
+    from graph_tpu_torch.parallel.tc import triangle_count_sharded
+
+    src, dst = host_rmat(16, seed=7)
+    g, on_cpu = (gtt.build_undirected(src, dst, node_count=1 << 16,
+                                      device=d,
+                                      layout=gtt.CsrLayout.DEDUPLICATED)
+                 for d in (cuda_device, "cpu"))
+    mats, cross, a, b = ttc._prepare_distinct(g, {}, cuda_device)
+    assert all(t.is_cuda for t in (a, b, *mats.values(), *(cross or ())))
+    with profile.record():
+        res = gtt.global_triangle_count(g)
+    spans = profile.spans()
+    orient, = _named(spans, "triangle_count.orient")
+    join, = _named(spans, "triangle_count.join")
+    assert orient["counters"]["on_card"] == 1
+    assert not [s for s in spans if s["parent"] == orient["id"]]
+    assert join["counters"]["bytes"] == 0
+    want = gtt.global_triangle_count(on_cpu).triangles
+    assert res.triangles == want > 0
+    sharded = triangle_count_sharded(g, Mesh([cuda_device] * 4))
+    assert sharded.triangles == want and sharded.phases["shards"] == 4

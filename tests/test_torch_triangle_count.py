@@ -26,6 +26,8 @@ from graph_tpu_torch.algos import triangle_count as ttc
 from graph_tpu_torch.generate import host_rmat
 from graph_tpu_torch.native import host_csr
 
+CPU = torch.device("cpu")
+
 
 @pytest.fixture(autouse=True)
 def small_slab(monkeypatch):
@@ -160,41 +162,108 @@ def test_joins_agree(graph):
     src, dst, n = GRAPHS[graph]()
     g = gtt.build_undirected(src, dst, node_count=n, device="cpu",
                              layout=gtt.CsrLayout.DEDUPLICATED)
-    mats, cross, a, b = ttc._prepare_distinct(g, {})
-    cpu = torch.device("cpu")
-    counts = [ttc._run_join(mats, cross, a, b, device=cpu, join=j)
+    mats, cross, a, b = ttc._prepare_distinct(g, {}, CPU)
+    counts = [ttc._run_join(mats, cross, a, b, device=CPU, join=j)
               for j in ttc.JOINS]
     assert counts[0] == counts[1] == _host_distinct(src, dst, n)
-    v, w = ttc._emit_intra(torch.from_numpy(mats[4]), 4)
-    ev, ew = ttc._pad_edge_keys(a, b)
+    v, w = ttc._emit_intra(mats[4], 4)
+    ev, ew = ttc._pad_edge_keys(a, b, CPU)
     want = int(jtc._join_count(jnp.asarray(v.numpy()), jnp.asarray(w.numpy()),
-                               jnp.asarray(ev), jnp.asarray(ew)))
-    assert int(ttc._join_count(v, w, torch.from_numpy(ev),
-                               torch.from_numpy(ew))) == want
-    assert int(ttc._lookup_count(v, w, ttc._edge_keys(a, b, cpu))) == want
+                               jnp.asarray(ev.numpy()),
+                               jnp.asarray(ew.numpy())))
+    assert int(ttc._join_count(v, w, ev, ew)) == want
+    assert int(ttc._lookup_count(v, w, ttc._edge_keys(a, b, CPU))) == want
     with pytest.raises(ValueError, match="join"):
-        ttc._run_join(mats, cross, a, b, device=cpu, join="hash")
+        ttc._run_join(mats, cross, a, b, device=CPU, join="hash")
 
 
 def test_packing_and_emission_match_graph_tpu():
     src, dst, n = _rmat_clique()
     g = gtt.build_undirected(src, dst, node_count=n, device="cpu",
                              layout=gtt.CsrLayout.DEDUPLICATED)
-    mats, cross, a, b = ttc._prepare_distinct(g, {})
-    jm, jc = jtc._pack_chunks(a.astype(np.int64), b.astype(np.int32))
+    mats, cross, a, b = ttc._prepare_distinct(g, {}, CPU)
+    jm, jc = jtc._pack_chunks(a.numpy(), b.numpy())
     assert sorted(mats) == sorted(jm) and 64 in mats and cross is not None
     for cap in mats:
-        np.testing.assert_array_equal(mats[cap], jm[cap])
-        v, w = ttc._emit_intra(torch.from_numpy(mats[cap]), cap)
+        np.testing.assert_array_equal(mats[cap].numpy(), jm[cap])
+        v, w = ttc._emit_intra(mats[cap], cap)
         jv, jw = jtc._emit_intra(jnp.asarray(jm[cap]), cap)
         np.testing.assert_array_equal(v.numpy(), np.asarray(jv))
         np.testing.assert_array_equal(w.numpy(), np.asarray(jw))
     for mine, theirs in zip(cross, jc):
-        np.testing.assert_array_equal(mine, theirs)
-    v, w = ttc._emit_cross(*(torch.from_numpy(m) for m in cross))
+        np.testing.assert_array_equal(mine.numpy(), theirs)
+    v, w = ttc._emit_cross(*cross)
     jv, jw = jtc._emit_cross(*(jnp.asarray(m) for m in jc))
     np.testing.assert_array_equal(v.numpy(), np.asarray(jv))
     np.testing.assert_array_equal(w.numpy(), np.asarray(jw))
+
+
+def _padded(g):
+    """``g`` with a sentinel tail past ``offsets[-1]``, as a padded build
+    carries."""
+    tail = torch.tensor([0, 1, 2, 3, 0, 1], dtype=g.csr.sources.dtype)
+    return type(g)(csr=type(g.csr)(
+        offsets=g.csr.offsets,
+        sources=torch.cat([g.csr.sources, tail]),
+        targets=torch.cat([g.csr.targets, tail.flip(0)])),
+        layout=g.layout)
+
+
+PREPARED = {
+    "random8": GRAPHS["random8"], "rmat10_clique": _rmat_clique,
+    # a node of 199 forward neighbours: four chunk rows, six cross pairs
+    "rmat10_clique200": lambda: _rmat_clique(k=200),
+    "one_edge": lambda: (np.array([0]), np.array([1]), 2),
+    "rmat9_padded": GRAPHS["rmat9"]}
+
+
+@pytest.mark.parametrize("name", sorted(PREPARED))
+def test_preparation_equals_graph_tpu_orientation_and_packing(name):
+    """The preparation's tensors, bit for bit graph_tpu's native
+    orientation followed by its host packing."""
+    src, dst, n = PREPARED[name]()
+    g = gtt.build_undirected(src, dst, node_count=n, device="cpu",
+                             layout=gtt.CsrLayout.DEDUPLICATED)
+    m = int(g.csr.offsets[-1])
+    ja, jb = jax_orient(g.csr.sources.numpy().astype(np.int32),
+                        g.csr.targets.numpy().astype(np.int32), n)
+    jm, jc = jtc._pack_chunks(ja.astype(np.int64), jb)
+    if name.endswith("_padded"):
+        g = _padded(g)
+        assert g.csr.sources.numel() > m
+    phases = {}
+    mats, cross, a, b = ttc._prepare_distinct(g, phases, CPU)
+    assert a.dtype == torch.int64 and b.dtype == torch.int32
+    np.testing.assert_array_equal(a.numpy(), ja)
+    np.testing.assert_array_equal(b.numpy(), jb)
+    assert list(mats) == list(jm)
+    for cap in mats:
+        np.testing.assert_array_equal(mats[cap].numpy(), jm[cap])
+    assert (cross is None) == (jc is None)
+    for mine, theirs in zip(cross or (), jc or ()):
+        np.testing.assert_array_equal(mine.numpy(), theirs)
+    fdeg = np.bincount(ja)
+    assert phases["forward_edges"] == ja.size
+    assert phases["wedges"] == int((fdeg * (fdeg - 1) // 2).sum())
+    if name == "rmat10_clique200":
+        assert fdeg.max() > 2 * ttc.CLASS_CAPS[-1]
+    if name == "one_edge":
+        assert ja.size == 1 and mats == {} and cross is None
+
+
+def _numpy_orientation(g):
+    """The forward edges (rank(src) < rank(dst), ranked by degree then id)
+    sorted by their ranks, in numpy."""
+    s = g.csr.sources.numpy().astype(np.int64)
+    t = g.csr.targets.numpy().astype(np.int64)
+    deg = np.bincount(s, minlength=g.node_count)
+    rank = np.empty(g.node_count, np.int64)
+    rank[np.argsort(deg, kind="stable")] = np.arange(g.node_count)
+    a, b = rank[s], rank[t]
+    fwd = a < b
+    a, b = a[fwd], b[fwd]
+    o = np.lexsort((b, a))
+    return a[o], b[o].astype(np.int32)
 
 
 def test_native_orientation_equals_numpy_and_graph_tpu():
@@ -205,14 +274,9 @@ def test_native_orientation_equals_numpy_and_graph_tpu():
     t = g.csr.targets.numpy().astype(np.int32)
     a, b = host_csr.tc_orient_native(s, t, n)
     assert host_csr.load_error() is None
-    deg = np.bincount(s, minlength=n)
-    rank = np.empty(n, np.int64)
-    rank[np.argsort(deg, kind="stable")] = np.arange(n)
-    ra, rb = rank[s], rank[t]
-    fwd = ra < rb
-    o = np.lexsort((rb[fwd], ra[fwd]))
-    np.testing.assert_array_equal(a, ra[fwd][o])
-    np.testing.assert_array_equal(b, rb[fwd][o])
+    na, nb = _numpy_orientation(g)
+    np.testing.assert_array_equal(a, na)
+    np.testing.assert_array_equal(b, nb)
     ja, jb = jax_orient(s, t, n)
     np.testing.assert_array_equal(a, ja)
     np.testing.assert_array_equal(b, jb)
@@ -220,16 +284,20 @@ def test_native_orientation_equals_numpy_and_graph_tpu():
         host_csr.tc_orient_native(s, t, n - 1)
 
 
-def test_numpy_orientation_path_counts_the_same(monkeypatch):
+def test_numpy_orientation_path_counts_the_same():
     src, dst, n = _rmat(9, 5)
     g = gtt.build_undirected(src, dst, node_count=n, device="cpu",
                              layout=gtt.CsrLayout.DEDUPLICATED)
-    native = gtt.global_triangle_count(g)
-    monkeypatch.setattr(ttc, "tc_orient_native", lambda *a: None)
-    fallback = gtt.global_triangle_count(g)
-    assert fallback.triangles == native.triangles
-    assert fallback.phases["forward_edges"] == native.phases["forward_edges"]
-    assert native.phases["wedges"] > 0 and native.phases["slabs"] > 0
+    res = gtt.global_triangle_count(g)
+    a, b = _numpy_orientation(g)
+    mats, cross, _ = ttc._pack_chunks(torch.from_numpy(a),
+                                      torch.from_numpy(b), n)
+    phases = {}
+    assert ttc._run_join(mats, cross, a, b, device=CPU,
+                         phases=phases) == res.triangles
+    assert res.phases["forward_edges"] == a.size
+    assert phases["slabs"] == res.phases["slabs"] > 0
+    assert res.phases["wedges"] > 0
 
 
 def test_padded_tail_is_trimmed_and_large_graphs_refused(monkeypatch):
@@ -238,13 +306,7 @@ def test_padded_tail_is_trimmed_and_large_graphs_refused(monkeypatch):
     src, dst = _edges(NAMED["k4"][0])
     g = gtt.build_undirected(src, dst, device="cpu",
                              layout=gtt.CsrLayout.DEDUPLICATED)
-    tail = torch.tensor([0, 1, 2, 3, 0, 1], dtype=g.csr.sources.dtype)
-    padded = type(g)(csr=type(g.csr)(
-        offsets=g.csr.offsets,
-        sources=torch.cat([g.csr.sources, tail]),
-        targets=torch.cat([g.csr.targets, tail.flip(0)])),
-        layout=g.layout)
-    assert gtt.global_triangle_count(padded).triangles == 4
+    assert gtt.global_triangle_count(_padded(g)).triangles == 4
     monkeypatch.setattr(ttc, "SENT", 4)
     with pytest.raises(ValueError, match="2\\^29"):
         gtt.global_triangle_count(g)
