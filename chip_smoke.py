@@ -42,7 +42,7 @@ m = 67,108,864, seed 42):
   its plan to a cache of the phase's own, and the CLI reads it back;
 * ``global_triangle_count`` on the same edges built DEDUPLICATED on the
   card (distinct triangles), unchanged by ``make_degree_ordered``, with
-  its preparation, card seconds and one slab of each join design
+  its preparation, card seconds and one slab of the lookup join
   timed; at scale 16 the distinct count against scipy and the SORTED
   multiset count against a host model;
 * the multi-device paths on a mesh of four shards sharing the card
@@ -1094,10 +1094,10 @@ def host_multiset_triangles(g):
 
 def triangles_phase(gtt, dev, src, dst, n):
     """Triangle count at scale 22 on the card (distinct, DEDUPLICATED),
-    unchanged by the degree relabel; the two join designs timed on one
-    full slab; at scale 16 the distinct count against scipy (and the
-    sort join's count against the lookup join's) and the multiset count
-    (SORTED, relabeled) against a host model.  Returns the scale-22 count
+    unchanged by the degree relabel; the lookup join timed on one full
+    slab; at scale 16 the distinct count and the join alone against
+    scipy, and the multiset count (SORTED, relabeled) against a host
+    model.  Returns the scale-22 count
     and its DEDUPLICATED graph."""
     import torch
 
@@ -1135,23 +1135,19 @@ def triangles_phase(gtt, dev, src, dst, n):
     del rel
     free_device()
 
-    # the two joins on one full slab of the 64-wide class, same wedges
+    # the lookup join on one full slab of the 64-wide class
     mats, _, a, b = kept[0]
     mat = mats[64]
     rows = max(1, tc.SLAB // (64 * 63 // 2))
     v, w = tc._emit_intra(mat[:rows], 64)
     keys = tc._edge_keys(a, b, dev)
-    ev, ew = tc._pad_edge_keys(a, b, dev)
-    lookup = int(tc._lookup_count(v, w, keys))
-    check(int(tc._join_count(v, w, ev, ew)) == lookup,
-          "triangles: the sort join and the lookup join disagree on a slab")
     out["one_slab"] = {
-        "wedge_slots": v.numel(), "matches": lookup,
+        "wedge_slots": v.numel(),
+        "matches": int(tc._lookup_count(v, w, keys)),
         "lookup_ms": time_ms(lambda: tc._lookup_count(v, w, keys), reps=5),
-        "sort_ms": time_ms(lambda: tc._join_count(v, w, ev, ew), reps=3),
         "edge_keys_sort_ms": time_ms(lambda: tc._edge_keys(a, b, dev),
                                      reps=3)}
-    del mats, kept, mat, v, w, keys, ev, ew
+    del mats, kept, mat, v, w, keys
     free_device()
 
     # checks 2 and 3 at TC_CHECK_SCALE (the multiset count's wedges)
@@ -1167,14 +1163,12 @@ def triangles_phase(gtt, dev, src, dst, n):
           f"triangles at scale {TC_CHECK_SCALE}: {distinct.triangles}, "
           f"scipy {want}")
     prep = tc._prepare_distinct(cg, {}, dev)
-    joins = {}
-    for join in tc.JOINS:
-        _sync()
-        t0 = time.perf_counter()
-        count = tc._run_join(*prep, device=dev, join=join)
-        joins[join] = {"count": count, "s": time.perf_counter() - t0}
-        check(count == want, f"triangles: the {join} join counts "
-              f"{count}, scipy {want}")
+    _sync()
+    t0 = time.perf_counter()
+    count = tc._run_join(*prep, device=dev)
+    join = {"count": count, "s": time.perf_counter() - t0}
+    check(count == want, f"triangles: the join counts {count}, scipy "
+          f"{want}")
     gs = gtt.make_degree_ordered(gtt.build_undirected(
         c_src, c_dst, node_count=cn, device=dev,
         layout=gtt.CsrLayout.SORTED))
@@ -1187,7 +1181,7 @@ def triangles_phase(gtt, dev, src, dst, n):
     out["host_checks"] = {
         "scale": TC_CHECK_SCALE,
         "distinct": {"triangles": distinct.triangles, "host_check_s": host_s,
-                     "joins": joins, **distinct.phases},
+                     "join": join, **distinct.phases},
         "multiset": {"triangles": cm.triangles, "host_check_s": host_m_s,
                      "why_not_scale22": "scale 22 has about 51e9 "
                                         "multiset wedges", **cm.phases}}

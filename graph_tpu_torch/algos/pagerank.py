@@ -34,7 +34,8 @@ every iteration, in a host loop on any device.
 
 Under a default mesh of more than one shard
 (:func:`graph_tpu_torch.parallel.use_mesh`) ``"auto"`` runs the sharded
-paths of :mod:`graph_tpu_torch.parallel.pagerank` instead; a pinned
+paths of :mod:`graph_tpu_torch.parallel.pagerank` instead
+(:func:`~graph_tpu_torch.parallel.pagerank.page_rank_meshed`); a pinned
 engine keeps the single-device path.
 """
 
@@ -115,6 +116,8 @@ def page_rank(graph: DirectedCsrGraph,
     config = config or PageRankConfig()
     if config.engine not in ENGINES:
         raise ValueError(f"unknown PageRank engine {config.engine!r}")
+    from graph_tpu_torch.parallel.mesh import _default_mesh
+
     mesh = _default_mesh()
     if mesh is not None and config.engine != "auto":
         # an explicit engine pin wins over the installed default mesh
@@ -126,48 +129,11 @@ def page_rank(graph: DirectedCsrGraph,
         if config.log_progress:
             logger.info("page_rank: log_progress is not supported on the "
                         "meshed path; running without per-iteration logs")
-        return _page_rank_meshed(graph, config, mesh)
+        from graph_tpu_torch.parallel.pagerank import page_rank_meshed
+
+        return page_rank_meshed(graph, mesh, config)
     engine = "plan" if config.engine == "auto" else config.engine
     return _run(graph, config, engine, config.log_progress)
-
-
-def _default_mesh():
-    """The mesh installed with ``graph_tpu_torch.parallel.use_mesh``, if
-    it has more than one shard."""
-    from graph_tpu_torch.parallel.mesh import get_default_mesh
-
-    mesh = get_default_mesh()
-    if mesh is not None and mesh.size > 1:
-        return mesh
-    return None
-
-
-def _rowblock_route(graph, mesh) -> bool:
-    """Whether a meshed algorithm takes the row-block EdgeEngine (K1 and
-    K2 on every shard) rather than the segment-op shards: from 2**21
-    edges on a mesh of cards, ``graph_tpu``'s rule with its TPU test
-    read as a CUDA one.  CPU meshes take the segment-op shards, as
-    ``graph_tpu``'s CPU tests do."""
-    return graph.edge_count >= (1 << 21) and mesh.devices[0].type == "cuda"
-
-
-def _page_rank_meshed(graph, config, mesh) -> PageRankResult:
-    """Route through the row-block sharded paths, each shard's arrays
-    cached per (graph, mesh)."""
-    from graph_tpu_torch.parallel.mesh import mesh_key
-
-    if _rowblock_route(graph, mesh):
-        from graph_tpu_torch.parallel.pagerank import (
-            page_rank_rowblock, shard_graph_plan)
-
-        rbe = engine_for(graph, ("rowblock",) + mesh_key(mesh),
-                         lambda: shard_graph_plan(graph, mesh))
-        return page_rank_rowblock(rbe, config)
-    from graph_tpu_torch.parallel.pagerank import page_rank_sharded, shard_graph
-
-    sg = engine_for(graph, ("sharded-pull",) + mesh_key(mesh),
-                    lambda: shard_graph(graph, mesh))
-    return page_rank_sharded(sg, mesh, config)
 
 
 def _inv_outdeg(outdeg: torch.Tensor) -> torch.Tensor:

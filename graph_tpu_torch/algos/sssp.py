@@ -26,7 +26,8 @@ match the reference golden ``[0, 4, 2, 9, 5, 20]`` (sssp.rs:283-313).
 ``"auto"`` runs the plan engine, the fastest on the card on the RMAT and
 on the grid (PERF.md); under a default mesh of more than one shard
 (:func:`graph_tpu_torch.parallel.use_mesh`) it runs the sharded
-Bellman-Ford of :mod:`graph_tpu_torch.parallel.sssp` instead.
+Bellman-Ford of :mod:`graph_tpu_torch.parallel.sssp` instead
+(:func:`~graph_tpu_torch.parallel.sssp.sssp_meshed`).
 """
 
 from __future__ import annotations
@@ -39,7 +40,6 @@ import numpy as np
 import torch
 
 from graph_tpu_torch import profile
-from graph_tpu_torch.algos.pagerank import _default_mesh, _rowblock_route
 from graph_tpu_torch.device import synchronize, to_host
 from graph_tpu_torch.engine.engine import EdgeEngine, engine_for
 from graph_tpu_torch.engine.kernels import INF as _PLAN_INF
@@ -102,9 +102,13 @@ def delta_stepping(graph: DirectedCsrGraph,
     if not 0 <= s < graph.node_count:
         raise ValueError(f"start_node {s} is not a node of a graph of "
                          f"{graph.node_count}")
+    from graph_tpu_torch.parallel.mesh import _default_mesh
+
     mesh = _default_mesh()
     if mesh is not None and config.engine == "auto":
-        return _sssp_meshed(graph, config, mesh)
+        from graph_tpu_torch.parallel.sssp import sssp_meshed
+
+        return sssp_meshed(graph, mesh, config)
     if config.engine == "frontier":
         return _sssp_frontier(graph, config)
     if config.engine == "xla":
@@ -121,25 +125,6 @@ def delta_stepping(graph: DirectedCsrGraph,
         return SsspResult(distances=dist, micros=micros,
                           ran_iterations=steps, host_reads=reads)
     return _sssp_plan(graph, config)
-
-
-def _sssp_meshed(graph: DirectedCsrGraph, config, mesh) -> SsspResult:
-    """Route through the sharded Bellman-Ford (``graph_tpu``'s
-    default-mesh route), each shard's arrays cached per (graph, mesh)."""
-    from graph_tpu_torch.parallel.mesh import mesh_key
-
-    if _rowblock_route(graph, mesh):
-        from graph_tpu_torch.parallel.sssp import (
-            shard_weighted_graph_plan, sssp_rowblock)
-
-        rbe = engine_for(graph, ("rowblock-w",) + mesh_key(mesh),
-                         lambda: shard_weighted_graph_plan(graph, mesh))
-        return sssp_rowblock(rbe, config)
-    from graph_tpu_torch.parallel.sssp import shard_weighted_graph, sssp_sharded
-
-    sg = engine_for(graph, ("sharded-weighted",) + mesh_key(mesh),
-                    lambda: shard_weighted_graph(graph, mesh))
-    return sssp_sharded(sg, mesh, config)
 
 
 def _bucket_of(dist: torch.Tensor, delta: float) -> torch.Tensor:

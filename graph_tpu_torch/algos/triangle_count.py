@@ -20,10 +20,9 @@ The work is ``graph_tpu``'s, in three steps, all where the join runs
 
 The join differs from ``graph_tpu``'s, with the same count.  A TPU
 sorts fast and gathers slowly, so ``graph_tpu`` sorts every slab's
-wedges together with all edge keys (:func:`_join_count`, kept here as
-``join="sort"``).  A GPU searches well: the edge keys are sorted once
-and each wedge is looked up with ``torch.searchsorted``
-(:func:`_lookup_count`, ``join="lookup"``, the default).  Per-slab counts
+wedges together with all edge keys (its ``_join_count``).  A GPU
+searches well: the edge keys are sorted once and each wedge is looked
+up with ``torch.searchsorted`` (:func:`_lookup_count`).  Per-slab counts
 stay on the device; the host reads sizes and the total once.
 
 Layout semantics (the reference's):
@@ -44,8 +43,7 @@ result's ``phases``); inside it ``triangle_count.orient``
 (``forward_edges``, and ``on_card``: 1 where the device is a card),
 ``triangle_count.pack`` (``wedges``, ``rows``), each ending once its
 device work has, and ``triangle_count.join`` (``wedge_slots``,
-``slabs``, ``bytes`` sent to the device, and ``device_ms`` from CUDA
-events on a card).
+``slabs``, and ``device_ms`` from CUDA events on a card).
 
 Under a default mesh of more than one shard
 (:func:`graph_tpu_torch.parallel.use_mesh`) the DEDUPLICATED count
@@ -64,8 +62,7 @@ import numpy as np
 import torch
 
 from graph_tpu_torch import profile
-from graph_tpu_torch.algos.pagerank import _default_mesh
-from graph_tpu_torch.device import run_device, synchronize
+from graph_tpu_torch.device import concrete_device, run_device, synchronize
 from graph_tpu_torch.graph.csr import Csr, CsrLayout, UndirectedCsrGraph
 
 #: Degree-class caps; lists longer than the last cap split into chunks.
@@ -74,9 +71,6 @@ CLASS_CAPS = (4, 8, 16, 32, 64)
 SENT = 1 << 29
 #: Wedge slots per join step.
 SLAB = 1 << 25
-#: How a wedge finds its edge: "lookup" (sorted keys, searchsorted) or
-#: "sort" (graph_tpu's sort of wedges with edge keys).
-JOINS = ("lookup", "sort")
 #: The ``phases`` entries that the ``triangle_count.run`` span counts.
 RUN_COUNTERS = ("forward_edges", "wedges", "wedge_slots", "slabs")
 
@@ -112,31 +106,6 @@ def _emit_cross(rows_a: torch.Tensor, rows_b: torch.Tensor):
     v = rows_a[:, :, None].expand(shape)
     w = rows_b[:, None, :].expand(shape)
     return v.reshape(-1), w.reshape(-1)
-
-
-def _join_count(v: torch.Tensor, w: torch.Tensor, ev: torch.Tensor,
-                ew: torch.Tensor) -> torch.Tensor:
-    """Count wedges (v, w) for which an edge (ev, ew) exists, by sorting
-    them together (``graph_tpu``'s join).
-
-    One int64 key ``vv << 31 | ww`` sorts as (vv, ww) does: ``vv <=
-    SENT + 1`` and ``ww = 2w + 1 <= 2**30 + 3 < 2**31``.  The tag bit
-    (edges 0, wedges 1) sorts edges before same-pair wedges.  A wedge
-    matches iff its pair's run holds an edge, i.e. the last edge position
-    is at or after the run's start: two running maxima.  Returns a 0-dim
-    int64 tensor on the inputs' device.
-    """
-    vv = torch.cat([v, ev]).long()
-    ww = torch.cat([w.long() * 2 + 1, ew.long() * 2])
-    key = torch.sort((vv << 31) | ww).values
-    is_edge = (key & 1) == 0
-    pair = key >> 1
-    idx = torch.arange(key.numel(), device=key.device)
-    boundary = torch.ones_like(is_edge)
-    boundary[1:] = pair[1:] != pair[:-1]
-    run_start = torch.cummax(torch.where(boundary, idx, 0), 0).values
-    last_edge = torch.cummax(torch.where(is_edge, idx, -1), 0).values
-    return ((~is_edge) & (last_edge >= run_start)).sum()
 
 
 def _edge_keys(ev, ew, device: torch.device) -> torch.Tensor:
@@ -249,25 +218,6 @@ def _pack_chunks(heads: torch.Tensor, items: torch.Tensor, n: int):
     return mats, cross, deg
 
 
-def _sent_bytes(device: torch.device, *arrays) -> int:
-    """The bytes of ``arrays`` that do not lie on ``device``."""
-    return sum(int(x.nbytes) for x in arrays
-               if not isinstance(x, torch.Tensor) or x.device != device)
-
-
-def _pad_edge_keys(ev, ew, device: torch.device):
-    """Edge keys padded to a 2^20 multiple with a sentinel distinct from
-    the wedge pad (so pad wedges never match pad edges), as
-    ``graph_tpu`` does for its sort join's shapes: int32 tensors on
-    ``device``."""
-    unit = 1 << 20
-    m = len(ev)
-    pad = torch.full((max(unit, -(-m // unit) * unit) - m,), SENT + 1,
-                     dtype=torch.int32, device=device)
-    return tuple(torch.cat([torch.as_tensor(x, device=device).to(
-        torch.int32), pad]) for x in (ev, ew))
-
-
 def _groups(pairs_per_row: int, rows: int):
     """Row ranges of about ``SLAB`` wedge slots each."""
     rows_per = max(1, SLAB // max(pairs_per_row, 1))
@@ -275,35 +225,27 @@ def _groups(pairs_per_row: int, rows: int):
 
 
 def _run_join(mats, cross, ev, ew, cross_full=None, *,
-              device: torch.device, join: str = "lookup",
-              phases: Optional[dict] = None) -> int:
-    """Emit wedges group by group on ``device`` and join them against the
-    edge keys (ev, ew).
+              device: torch.device, phases: Optional[dict] = None) -> int:
+    """Emit wedges group by group on ``device`` and look them up among
+    the edge keys (ev, ew).
 
     ``mats``/``cross`` hold the intra-list pairs (distinct path);
     ``cross_full`` (multiset path) are (A, B) matrices whose outer
     products are the wedges G(v) x F(v).  Tensors or host arrays: each
     matrix not on the device goes there once; each group of rows emits
-    about ``SLAB`` wedge slots and joins them (``join``: see
-    :data:`JOINS`).  Counts add up on the device and the host reads the
-    total once.  ``phases``, when given, gets the
-    wedge slots and join steps.
+    about ``SLAB`` wedge slots and counts the matches
+    (:func:`_lookup_count`).  Counts add up on the device and the host
+    reads the total once.  ``phases``, when given, gets the wedge slots
+    and join steps.
     """
-    if join == "lookup":
-        keys = _edge_keys(ev, ew, device)
-        count = lambda v, w: _lookup_count(v, w, keys)  # noqa: E731
-    elif join == "sort":
-        pev, pew = _pad_edge_keys(ev, ew, device)
-        count = lambda v, w: _join_count(v, w, pev, pew)  # noqa: E731
-    else:
-        raise ValueError(f"join must be one of {JOINS}, got {join!r}")
+    keys = _edge_keys(ev, ew, device)
     total = torch.zeros((), dtype=torch.int64, device=device)
     slots = steps = 0
     for cap, mat in (mats or {}).items():
         mat_d = torch.as_tensor(mat, device=device)
         for r0, r1 in _groups(cap * (cap - 1) // 2, mat.shape[0]):
             v, w = _emit_intra(mat_d[r0:r1], cap)
-            total += count(v, w)
+            total += _lookup_count(v, w, keys)
             slots, steps = slots + v.numel(), steps + 1
     for pair in (cross, cross_full):
         if pair is None:
@@ -312,7 +254,7 @@ def _run_join(mats, cross, ev, ew, cross_full=None, *,
         per_row = a_d.shape[1] * b_d.shape[1]
         for r0, r1 in _groups(per_row, a_d.shape[0]):
             v, w = _emit_cross(a_d[r0:r1], b_d[r0:r1])
-            total += count(v, w)
+            total += _lookup_count(v, w, keys)
             slots, steps = slots + v.numel(), steps + 1
     if phases is not None:
         phases.update(wedge_slots=slots, slabs=steps)
@@ -346,12 +288,14 @@ def global_triangle_count(graph: UndirectedCsrGraph, *,
             "global_triangle_count requires CsrLayout.SORTED or "
             "CsrLayout.DEDUPLICATED (the reference's merge intersection "
             "assumes sorted neighbor lists)")
+    from graph_tpu_torch.parallel.mesh import _default_mesh
+
     mesh = _default_mesh()
     if mesh is not None and device is None:
         from graph_tpu_torch.parallel.tc import triangle_count_sharded
 
         return triangle_count_sharded(graph, mesh)
-    device = _concrete(run_device(graph, device))
+    device = concrete_device(run_device(graph, device))
     with profile.span("triangle_count.run") as sp:
         start = time.perf_counter()
         phases = {}
@@ -366,9 +310,7 @@ def global_triangle_count(graph: UndirectedCsrGraph, *,
                                   phases=phases)
                 if jp:
                     jp.count(wedge_slots=phases["wedge_slots"],
-                             slabs=phases["slabs"],
-                             bytes=_sent_bytes(device, a, b, *mats.values(),
-                                               *(cross or ())))
+                             slabs=phases["slabs"])
             phases["join_s"] = time.perf_counter() - t0
         micros = int((time.perf_counter() - start) * 1e6)
         if sp:
@@ -379,14 +321,6 @@ def global_triangle_count(graph: UndirectedCsrGraph, *,
 def _check_node_count(n: int) -> None:
     if n >= SENT:
         raise ValueError(f"triangle count supports node_count < 2^29, got {n}")
-
-
-def _concrete(device: torch.device) -> torch.device:
-    """``device`` with the index its tensors report (``cuda`` is the
-    current card)."""
-    if device.type == "cuda" and device.index is None:
-        return torch.device("cuda", torch.cuda.current_device())
-    return device
 
 
 def _prepare_distinct(graph: UndirectedCsrGraph, phases: dict,

@@ -28,7 +28,8 @@ and all map onto it, as in graph_tpu.
 
 Under a default mesh of more than one shard
 (:func:`graph_tpu_torch.parallel.use_mesh`) ``"auto"`` runs the sharded
-WCC of :mod:`graph_tpu_torch.parallel.wcc` instead; a pinned engine or
+WCC of :mod:`graph_tpu_torch.parallel.wcc` instead
+(:func:`~graph_tpu_torch.parallel.wcc.wcc_meshed`); a pinned engine or
 a given ``device`` keeps the single-device path.
 """
 
@@ -42,7 +43,6 @@ import numpy as np
 import torch
 
 from graph_tpu_torch import profile
-from graph_tpu_torch.algos.pagerank import _default_mesh, _rowblock_route
 from graph_tpu_torch.device import run_device, synchronize, to_host
 from graph_tpu_torch.dtypes import check_node_count_fits
 from graph_tpu_torch.engine.engine import EdgeEngine, engine_for
@@ -103,10 +103,14 @@ def wcc(graph: Union[DirectedCsrGraph, UndirectedCsrGraph],
     >>> wcc(g).components_np().tolist()
     [0, 0, 2, 2]
     """
+    from graph_tpu_torch.parallel.mesh import _default_mesh
+
     config = config or WccConfig()
     mesh = _default_mesh()
     if mesh is not None and config.engine == "auto" and device is None:
-        return _wcc_meshed(graph, config, mesh)
+        from graph_tpu_torch.parallel.wcc import wcc_meshed
+
+        return wcc_meshed(graph, mesh, config)
     if config.engine == "xla":
         return _wcc_xla(graph, device)
     if config.engine not in ("auto", "plan"):
@@ -143,30 +147,6 @@ def wcc_afforest_dss(graph, config: Optional[WccConfig] = None, *,
     """Reference analog: ``wcc_afforest_dss`` (wcc.rs:144); see
     :func:`wcc_baseline`."""
     return wcc(graph, config, device=device)
-
-
-def _wcc_meshed(graph, config: WccConfig, mesh) -> WccResult:
-    """Route through the sharded WCC (``graph_tpu``'s default-mesh
-    route), each shard's arrays cached per (graph, mesh); labels in the
-    graph's id dtype, as the single-device paths give them."""
-    from graph_tpu_torch.parallel.mesh import mesh_key
-
-    if _rowblock_route(graph, mesh):
-        from graph_tpu_torch.parallel.wcc import (
-            shard_hook_graph_plan, wcc_rowblock)
-
-        rbe = engine_for(graph, ("rowblock-sym",) + mesh_key(mesh),
-                         lambda: shard_hook_graph_plan(graph, mesh))
-        res = wcc_rowblock(rbe, config)
-    else:
-        from graph_tpu_torch.parallel.wcc import shard_hook_graph, wcc_sharded
-
-        sg = engine_for(graph, ("sharded-hook",) + mesh_key(mesh),
-                        lambda: shard_hook_graph(graph, mesh))
-        res = wcc_sharded(sg, mesh, config)
-    ids = (graph.csr.targets if isinstance(graph, UndirectedCsrGraph)
-           else graph.csr_out.targets)
-    return dataclasses.replace(res, components=res.components.to(ids.dtype))
 
 
 def _sym_engine(graph, device=None) -> EdgeEngine:

@@ -39,6 +39,15 @@ def run_device(graph, device=None) -> torch.device:
     return graph.device
 
 
+def concrete_device(device) -> torch.device:
+    """``device`` as a ``torch.device`` with the index its tensors report:
+    a bare ``"cuda"`` names the current card."""
+    device = torch.device(device)
+    if device.type == "cuda" and device.index is None:
+        return torch.device("cuda", torch.cuda.current_device())
+    return device
+
+
 def synchronize(device: torch.device) -> None:
     """Wait for the card's queued work (a host timer's end point)."""
     if device.type == "cuda":

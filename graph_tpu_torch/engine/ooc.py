@@ -42,6 +42,7 @@ from graph_tpu_torch.dtypes import check_node_count_fits
 from graph_tpu_torch.engine.kernels import (
     FIXED_BITS, INF, INF_BITS, IMAX, k1_gather, k1_gather_weighted,
     k2_num_tiles, k2_reduce, k2_reduce_min, k2_tile_cuts)
+from graph_tpu_torch.engine.loop import Flag, host_while
 from graph_tpu_torch.engine.plan import EdgePlan, build_plan
 
 logger = logging.getLogger(__name__)
@@ -286,8 +287,8 @@ def wcc_ooc(src, dst, n: int, *, max_bytes: Optional[int] = None,
 
     Min-label propagation with pointer jumping (the plan path of
     algos/wcc.py) over slab-streamed symmetrized edges; labels are int32
-    node ids, on the host between rounds.  Returns the (n,) labels, a
-    CPU tensor.
+    node ids, on the host between rounds (``host_while``: one read a
+    round).  Returns the (n,) labels, a CPU tensor.
     """
     check_node_count_fits(n, np.int32)
     src, dst = np.asarray(src), np.asarray(dst)
@@ -295,14 +296,16 @@ def wcc_ooc(src, dst, n: int, *, max_bytes: Optional[int] = None,
                               np.concatenate([dst, src]), n,
                               max_bytes=max_bytes, n_slabs=n_slabs,
                               device=device)
-    comp = torch.arange(n, dtype=torch.int32)
-    while True:
+
+    def body(state):
+        comp, _ = state
         new = torch.minimum(comp, eng.smin_int(comp))
         new = new[new.long()]  # pointer jump (squares chains)
         new = new[new.long()]
-        if torch.equal(new, comp):
-            return comp
-        comp = new
+        return new, (new != comp).any()
+
+    comp = torch.arange(n, dtype=torch.int32)
+    return host_while(body, (comp, 1), Flag(1)).state[0]
 
 
 def sssp_ooc(src, dst, values, n: int, start_node: int = 0, *,
@@ -311,20 +314,22 @@ def sssp_ooc(src, dst, values, n: int, start_node: int = 0, *,
     """Single-source shortest paths on an out-of-core weighted graph.
 
     Bellman-Ford to the fixpoint with slab-streamed relaxation rounds
-    (distances on the host between rounds; the plan path's semantics).
-    Returns the (n,) f32 distances, a CPU tensor, unreached nodes at the
-    engine's +inf stand-in (3e38).
+    (distances on the host between rounds, ``host_while``: one read a
+    round; the plan path's semantics).  Returns the (n,) f32 distances,
+    a CPU tensor, unreached nodes at the engine's +inf stand-in (3e38).
     """
     eng = OocEdgeEngine.build(src, dst, n, values=values,
                               max_bytes=max_bytes, n_slabs=n_slabs,
                               device=device)
+
+    def body(state):
+        dist, _ = state
+        new = torch.minimum(dist, eng.relax(dist))
+        return new, (new != dist).any()
+
     dist = torch.full((n,), INF, dtype=torch.float32)
     dist[start_node] = 0.0
-    while True:
-        new = torch.minimum(dist, eng.relax(dist))
-        if torch.equal(new, dist):
-            return dist
-        dist = new
+    return host_while(body, (dist, 1), Flag(1)).state[0]
 
 
 def page_rank_ooc(src, dst, n: int, *, max_iterations: int = 20,

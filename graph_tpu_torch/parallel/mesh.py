@@ -19,16 +19,10 @@ from typing import Dict, Optional, Sequence, Tuple
 
 import torch
 
+from graph_tpu_torch.device import concrete_device
+from graph_tpu_torch.engine.engine import engine_for
+
 NODES_AXIS = "nodes"
-
-
-def _normal(device) -> torch.device:
-    """``device`` as a ``torch.device`` with its index; a bare "cuda"
-    names the current card."""
-    device = torch.device(device)
-    if device.type == "cuda" and device.index is None:
-        return torch.device("cuda", torch.cuda.current_device())
-    return device
 
 
 class Mesh:
@@ -36,7 +30,7 @@ class Mesh:
 
     def __init__(self, devices: Sequence, axis_names=(NODES_AXIS,)):
         self.devices: Tuple[torch.device, ...] = tuple(
-            _normal(d) for d in devices)
+            concrete_device(d) for d in devices)
         self.axis_names: Tuple[str, ...] = tuple(axis_names)
         if len(self.axis_names) != 1:
             raise ValueError(f"a mesh has one axis, got {self.axis_names}")
@@ -68,6 +62,37 @@ def set_default_mesh(mesh: Optional[Mesh]) -> None:
 
 def get_default_mesh() -> Optional[Mesh]:
     return _DEFAULT_MESH
+
+
+def _default_mesh() -> Optional[Mesh]:
+    """The installed default mesh, if it has more than one shard: the
+    mesh ``page_rank``/``wcc``/``delta_stepping``/
+    ``global_triangle_count`` route through unless their caller pins a
+    path (a one-shard mesh is no mesh)."""
+    mesh = get_default_mesh()
+    if mesh is not None and mesh.size > 1:
+        return mesh
+    return None
+
+
+def _rowblock_route(graph, mesh: Mesh) -> bool:
+    """Whether a meshed algorithm takes the row-block EdgeEngine (K1 and
+    K2 on every shard) rather than the segment-op shards: from 2**21
+    edges on a mesh of cards, ``graph_tpu``'s rule with its TPU test
+    read as a CUDA one.  CPU meshes take the segment-op shards, as
+    ``graph_tpu``'s CPU tests do."""
+    return graph.edge_count >= (1 << 21) and mesh.devices[0].type == "cuda"
+
+
+def run_meshed(graph, mesh: Mesh, rowblock: tuple, sharded: tuple):
+    """Run an algorithm over ``mesh`` by one of its two routes:
+    ``rowblock`` where :func:`_rowblock_route` holds, else ``sharded``,
+    each (the kind its shards are cached under, build(graph, mesh) ->
+    shards, run(shards) -> result).  The shards are built once per
+    (graph, kind, mesh) and kept with the graph's engines."""
+    kind, build, run = rowblock if _rowblock_route(graph, mesh) else sharded
+    return run(engine_for(graph, (kind,) + mesh_key(mesh),
+                          lambda: build(graph, mesh)))
 
 
 def mesh_key(mesh: Mesh) -> tuple:

@@ -16,9 +16,10 @@ block's gather and segment sum, and ``psum``-reduces the L1 residual.
   on every shard, each destination's sum the single-device engine's.
 
 The Jacobi update and its f32 scalars are the single-device loop's
-(:mod:`graph_tpu_torch.algos.pagerank`).  With ``tolerance <= 0`` the
-residual cannot stop the loop and is read once at the end; otherwise
-once an iteration.
+(:mod:`graph_tpu_torch.algos.pagerank`), and so is its loop:
+:func:`~graph_tpu_torch.engine.loop.host_while` with a ``Residual``.
+With ``tolerance <= 0`` the residual cannot stop the loop and is read
+once at the end; otherwise once an iteration.
 """
 
 from __future__ import annotations
@@ -34,12 +35,13 @@ from graph_tpu_torch.algos.pagerank import (
     ITERATION, PageRankConfig, PageRankResult, _inv_outdeg, _scalars,
     _update)
 from graph_tpu_torch.device import synchronize
+from graph_tpu_torch.engine.loop import Residual, host_while
 from graph_tpu_torch.graph.csr import DirectedCsrGraph
 from graph_tpu_torch.ops.segment import (
     segment_sum_fixedpoint, segment_sum_quanta)
 from graph_tpu_torch.parallel.collectives import ppermute, psum
 from graph_tpu_torch.parallel.halo import exchange
-from graph_tpu_torch.parallel.mesh import NODES_AXIS, Mesh
+from graph_tpu_torch.parallel.mesh import NODES_AXIS, Mesh, run_meshed
 from graph_tpu_torch.parallel.wcc import _block_csr, _placed, _sends
 from graph_tpu_torch.profile import annotate
 
@@ -143,7 +145,8 @@ def _jacobi_sharded(sums: Callable, inv_outdeg: Sequence[torch.Tensor],
                     valid: Optional[Sequence[torch.Tensor]], n: int,
                     max_iterations: int, tolerance: float,
                     damping_factor: float):
-    """The Jacobi loop over per-shard blocks.
+    """The Jacobi loop over per-shard blocks, its state each shard's
+    scores and then the residual.
 
     ``sums(out_scores)`` -> per shard its rows' spmv.  ``valid`` masks
     the padded rows to 0 (the row-block engine's loop); without it they
@@ -151,30 +154,25 @@ def _jacobi_sharded(sums: Callable, inv_outdeg: Sequence[torch.Tensor],
     loops, and their change counts in the residual.  Returns (scores
     per shard, iterations, error, host reads)."""
     init, base, d = _scalars(n, damping_factor)
-    tolerance = float(np.float32(tolerance))
-    read_each = tolerance > 0
     scores = [torch.full_like(inv, init) for inv in inv_outdeg]
     if valid is not None:
         scores = [torch.where(v, s, 0.0) for s, v in zip(scores, valid)]
-    out = [s * inv for s, inv in zip(scores, inv_outdeg)]
-    it, err, err_t, reads = 0, float("inf"), None, 0
-    while it < max_iterations and err >= tolerance:
+
+    def body(state):
+        scores = state[:-1]
         with annotate(ITERATION):
+            out = [s * inv for s, inv in zip(scores, inv_outdeg)]
             new = [_update(y, base, d) for y in sums(out)]
             if valid is not None:
                 new = [torch.where(v, x, 0.0) for x, v in zip(new, valid)]
-            err_t = psum([torch.sum(torch.abs(x - s))
-                          for x, s in zip(new, scores)])[0]
-            scores = new
-            out = [s * inv for s, inv in zip(scores, inv_outdeg)]
-            it += 1
-            if read_each:
-                err = err_t.item()  # host read: the residual decides
-                reads += 1
-    if err_t is not None and not read_each:
-        err = err_t.item()
-        reads += 1
-    return scores, it, err, reads
+            err = psum([torch.sum(torch.abs(x - s))
+                        for x, s in zip(new, scores)])[0]
+            return (*new, err)
+
+    run = host_while(body, (*scores, float("inf")),
+                     Residual(len(scores), max_iterations, tolerance))
+    return (list(run.state[:-1]), run.iterations, float(run.value),
+            run.host_reads)
 
 
 def _result(scores, mesh: Mesh, n: int, it: int, err: float, reads: int,
@@ -286,3 +284,17 @@ def page_rank_sharded(sg: ShardedPullGraph, mesh: Mesh,
         sums, inv, None, sg.node_count, int(config.max_iterations),
         config.tolerance, config.damping_factor)
     return _result(scores, mesh, sg.node_count, it, err, reads, start)
+
+
+def page_rank_meshed(graph: DirectedCsrGraph, mesh: Mesh,
+                     config: Optional[PageRankConfig] = None
+                     ) -> PageRankResult:
+    """``page_rank``'s default-mesh route: :func:`page_rank_rowblock` or
+    :func:`page_rank_sharded`, as
+    :func:`~graph_tpu_torch.parallel.mesh.run_meshed` picks."""
+    return run_meshed(
+        graph, mesh,
+        ("rowblock", shard_graph_plan,
+         lambda rbe: page_rank_rowblock(rbe, config)),
+        ("sharded-pull", shard_graph,
+         lambda sg: page_rank_sharded(sg, mesh, config)))

@@ -3,7 +3,8 @@
 Counterpart of ``graph_tpu.parallel.sssp``.  Sharding mirrors
 :mod:`graph_tpu_torch.parallel.pagerank`: each shard owns a row block of
 the in-CSR and the weights of the edges into it; every round exchanges
-the ragged distance halo and relaxes all local in-edges; the loop stops
+the ragged distance halo and relaxes all local in-edges; the loop
+(:func:`~graph_tpu_torch.engine.loop.host_while` on a ``Flag``) stops
 when the psum of the shards' change flags is 0 (one host read a round).
 
 * :func:`sssp_sharded`: a gather and a segment-min a round;
@@ -25,10 +26,11 @@ import torch
 from graph_tpu_torch.algos.sssp import INF, DeltaSteppingConfig, SsspResult
 from graph_tpu_torch.device import synchronize
 from graph_tpu_torch.engine.kernels import INF as _PLAN_INF
+from graph_tpu_torch.engine.loop import Flag, host_while
 from graph_tpu_torch.graph.csr import DirectedCsrGraph
 from graph_tpu_torch.parallel.collectives import psum
 from graph_tpu_torch.parallel.halo import exchange
-from graph_tpu_torch.parallel.mesh import NODES_AXIS, Mesh
+from graph_tpu_torch.parallel.mesh import NODES_AXIS, Mesh, run_meshed
 from graph_tpu_torch.parallel.pagerank import ShardedPullGraph, shard_graph
 from graph_tpu_torch.parallel.wcc import _segment_min_by_offsets
 
@@ -44,21 +46,24 @@ def shard_weighted_graph(graph: DirectedCsrGraph, mesh: Mesh,
 def _bellman_ford(relax: Callable, mesh: Mesh, rows_per: int, n: int,
                   start_node: int):
     """``dist <- min(dist, relax(dist))`` over per-shard blocks until no
-    distance falls.  Returns (distances (n,) on the first device,
-    rounds)."""
+    distance falls, the state each shard's distances and the psum of the
+    change flags.  Returns (distances (n,) on the first device, rounds,
+    host reads)."""
     dist = [torch.where(p * rows_per + torch.arange(rows_per, device=d)
                         == start_node, 0.0, float(INF)).to(torch.float32)
             for p, d in enumerate(mesh.devices)]
-    it, changed = 0, True
-    while changed:
+
+    def body(state):
+        dist = state[:-1]
         new = [torch.minimum(x, r) for x, r in zip(dist, relax(dist))]
         flags = psum([(x < y).any().to(torch.int32)
                       for x, y in zip(new, dist)])
-        changed = bool(flags[0] > 0)  # host read: decides the loop
-        dist = new
-        it += 1
+        return (*new, flags[0])
+
+    run = host_while(body, (*dist, 1), Flag(len(dist)))
     dev = mesh.devices[0]
-    return torch.cat([x.to(dev) for x in dist])[:n], it
+    return (torch.cat([x.to(dev) for x in run.state[:-1]])[:n],
+            run.iterations, run.host_reads)
 
 
 def sssp_sharded(sg: ShardedPullGraph, mesh: Mesh,
@@ -76,12 +81,12 @@ def sssp_sharded(sg: ShardedPullGraph, mesh: Mesh,
                                       sg.in_offsets)]
 
     start = time.perf_counter()
-    dist, it = _bellman_ford(relax, mesh, rows_per, sg.node_count,
-                             int(config.start_node))
+    dist, it, reads = _bellman_ford(relax, mesh, rows_per, sg.node_count,
+                                    int(config.start_node))
     synchronize(dist.device)
     return SsspResult(distances=dist,
                       micros=int((time.perf_counter() - start) * 1e6),
-                      ran_iterations=it, host_reads=it)
+                      ran_iterations=it, host_reads=reads)
 
 
 def shard_weighted_graph_plan(graph: DirectedCsrGraph, mesh: Mesh,
@@ -107,10 +112,23 @@ def sssp_rowblock(rbe, config: DeltaSteppingConfig) -> SsspResult:
                 for e, h in zip(rbe.engines, halos)]
 
     start = time.perf_counter()
-    dist, it = _bellman_ford(relax, rbe.mesh, rbe.rows_per, rbe.node_count,
-                             int(config.start_node))
+    dist, it, reads = _bellman_ford(relax, rbe.mesh, rbe.rows_per,
+                                    rbe.node_count, int(config.start_node))
     synchronize(dist.device)
     micros = int((time.perf_counter() - start) * 1e6)
     dist = dist.masked_fill(dist >= _PLAN_INF, float(INF))
     return SsspResult(distances=dist, micros=micros, ran_iterations=it,
-                      host_reads=it)
+                      host_reads=reads)
+
+
+def sssp_meshed(graph: DirectedCsrGraph, mesh: Mesh,
+                config: DeltaSteppingConfig) -> SsspResult:
+    """``delta_stepping``'s default-mesh route: :func:`sssp_rowblock` or
+    :func:`sssp_sharded`, as
+    :func:`~graph_tpu_torch.parallel.mesh.run_meshed` picks."""
+    return run_meshed(
+        graph, mesh,
+        ("rowblock-w", shard_weighted_graph_plan,
+         lambda rbe: sssp_rowblock(rbe, config)),
+        ("sharded-weighted", shard_weighted_graph,
+         lambda sg: sssp_sharded(sg, mesh, config)))

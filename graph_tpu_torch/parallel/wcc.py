@@ -5,8 +5,8 @@ node rows and the edges leaving them; hooks pull labels across ragged
 halo exchanges (:mod:`graph_tpu_torch.parallel.halo`: only the boundary
 label segments travel), pointer jumping all-gathers the label vector
 (jump targets are label values, unknowable at build time), and the loop
-stops when the psum of the shards' change flags is 0 (one host read a
-round).
+(:func:`~graph_tpu_torch.engine.loop.host_while` on a ``Flag``) stops
+when the psum of the shards' change flags is 0 (one host read a round).
 
 * :func:`wcc_sharded` hooks with two segment-mins a round, one per CSR
   direction (:func:`shard_hook_graph`);
@@ -28,11 +28,12 @@ import torch
 
 from graph_tpu_torch.algos.wcc import WccConfig, WccResult
 from graph_tpu_torch.device import synchronize
+from graph_tpu_torch.engine.loop import Flag, host_while
 from graph_tpu_torch.graph.csr import UndirectedCsrGraph
 from graph_tpu_torch.ops.segment import segment_min_sorted
 from graph_tpu_torch.parallel.collectives import all_gather, psum
 from graph_tpu_torch.parallel.halo import HaloPlan, build_halo, exchange
-from graph_tpu_torch.parallel.mesh import NODES_AXIS, Mesh
+from graph_tpu_torch.parallel.mesh import NODES_AXIS, Mesh, run_meshed
 
 
 @dataclasses.dataclass(frozen=True)
@@ -124,16 +125,18 @@ def _segment_min_by_offsets(vals: torch.Tensor, offsets: torch.Tensor,
 
 def _min_label_loop(hook: Callable, mesh: Mesh, rows_per: int,
                     jump_every: int):
-    """Min-label propagation over per-shard label blocks.
+    """Min-label propagation over per-shard label blocks, its state the
+    round, each shard's labels and the psum of the change flags.
 
     ``hook(comp)`` -> per shard the min label over its rows' edges.
     Labels start at the global row ids (padded rows too, as in
-    ``graph_tpu``).  Returns (labels per shard, rounds)."""
+    ``graph_tpu``).  Returns (labels per shard, rounds, host reads)."""
     comp = [p * rows_per + torch.arange(rows_per, dtype=torch.int32,
                                         device=d)
             for p, d in enumerate(mesh.devices)]
-    it, changed = 0, True
-    while changed:
+
+    def body(state):
+        it, comp = state[0], state[1:-1]
         new = [torch.minimum(c, h) for c, h in zip(comp, hook(comp))]
         if it % jump_every == jump_every - 1:
             # pointer jumping on the global vector: full[full[new]]
@@ -141,20 +144,20 @@ def _min_label_loop(hook: Callable, mesh: Mesh, rows_per: int,
             new = [f[f[x.long()].long()] for f, x in zip(full, new)]
         flags = psum([(x != c).any().to(torch.int32)
                       for x, c in zip(new, comp)])
-        changed = bool(flags[0] > 0)  # host read: decides the loop
-        comp = new
-        it += 1
-    return comp, it
+        return (it + 1, *new, flags[0])
+
+    run = host_while(body, (0, *comp, 1), Flag(len(comp) + 1))
+    return list(run.state[1:-1]), run.iterations, run.host_reads
 
 
-def _result(comp, mesh: Mesh, n: int, iters: int, start: float
-            ) -> WccResult:
+def _result(comp, mesh: Mesh, n: int, iters: int, reads: int,
+            start: float) -> WccResult:
     dev = mesh.devices[0]
     labels = torch.cat([c.to(dev) for c in comp])[:n]
     synchronize(dev)
     return WccResult(components=labels, ran_iterations=iters,
                      micros=int((time.perf_counter() - start) * 1e6),
-                     host_reads=iters)
+                     host_reads=reads)
 
 
 def wcc_sharded(sg: ShardedHookGraph, mesh: Mesh,
@@ -175,8 +178,8 @@ def wcc_sharded(sg: ShardedHookGraph, mesh: Mesh,
                 sg.bwd_offsets)]
 
     start = time.perf_counter()
-    comp, iters = _min_label_loop(hook, mesh, rows_per, jump_every)
-    return _result(comp, mesh, sg.node_count, iters, start)
+    comp, iters, reads = _min_label_loop(hook, mesh, rows_per, jump_every)
+    return _result(comp, mesh, sg.node_count, iters, reads, start)
 
 
 def shard_hook_graph_plan(graph, mesh: Mesh, axis: str = NODES_AXIS):
@@ -206,5 +209,23 @@ def wcc_rowblock(rbe, config: Optional[WccConfig] = None,
                 for e, h in zip(rbe.engines, halos)]
 
     start = time.perf_counter()
-    comp, iters = _min_label_loop(hook, rbe.mesh, rbe.rows_per, jump_every)
-    return _result(comp, rbe.mesh, rbe.node_count, iters, start)
+    comp, iters, reads = _min_label_loop(hook, rbe.mesh, rbe.rows_per,
+                                         jump_every)
+    return _result(comp, rbe.mesh, rbe.node_count, iters, reads, start)
+
+
+def wcc_meshed(graph, mesh: Mesh,
+               config: Optional[WccConfig] = None) -> WccResult:
+    """``wcc``'s default-mesh route: :func:`wcc_rowblock` or
+    :func:`wcc_sharded`, as :func:`~graph_tpu_torch.parallel.mesh.run_meshed`
+    picks; labels in the graph's id dtype, as the single-device paths
+    give them."""
+    res = run_meshed(
+        graph, mesh,
+        ("rowblock-sym", shard_hook_graph_plan,
+         lambda rbe: wcc_rowblock(rbe, config)),
+        ("sharded-hook", shard_hook_graph,
+         lambda sg: wcc_sharded(sg, mesh, config)))
+    ids = (graph.csr.targets if isinstance(graph, UndirectedCsrGraph)
+           else graph.csr_out.targets)
+    return dataclasses.replace(res, components=res.components.to(ids.dtype))

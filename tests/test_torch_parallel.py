@@ -12,8 +12,6 @@ iteration count and 1e-6 (its residual is an f32 psum); the ring to the
 blocking exchange bit for bit.
 """
 
-import importlib
-
 import jax
 import jax.numpy as jnp
 import numpy as np
@@ -35,7 +33,6 @@ from graph_tpu.parallel import wcc as jpw
 from graph_tpu.parallel.mesh import make_mesh as jax_make_mesh
 
 import graph_tpu_torch as gtt
-from graph_tpu_torch.algos import pagerank as tpr_algo
 from graph_tpu_torch.engine import engine as engine_mod
 from graph_tpu_torch.engine.engine import EdgeEngine
 from graph_tpu_torch.engine.shard import RowBlockEdgeEngine, ShardedEdgeEngine
@@ -409,7 +406,7 @@ def test_default_mesh_routes_algorithms(route_graphs, meshes):
     assert tc1.triangles == int(jtc.triangles) == tc0.triangles > 0
     assert tc1.phases["shards"] == 4
     # the CPU mesh takes the segment-op shards, as graph_tpu's CPU tests
-    assert not tpr_algo._rowblock_route(tg, cpu_mesh(4))
+    assert not tmesh._rowblock_route(tg, cpu_mesh(4))
 
 
 def test_api_reaches_the_mesh_routes(route_graphs, meshes):
@@ -439,11 +436,7 @@ def test_rowblock_route_on_a_mesh_of_cards(route_graphs, monkeypatch):
     2**21 edges; forced here on the CPU mesh), the three algorithms run
     it, cached per (graph, mesh), with the single-device results."""
     _, tg, _, _ = route_graphs
-    monkeypatch.setattr(tpr_algo, "_rowblock_route", lambda g, m: True)
-    for mod in ("wcc", "sssp"):
-        monkeypatch.setattr(importlib.import_module(
-            f"graph_tpu_torch.algos.{mod}"), "_rowblock_route",
-            lambda g, m: True)
+    monkeypatch.setattr(tmesh, "_rowblock_route", lambda g, m: True)
     mesh = cpu_mesh(4)
     with use_mesh(mesh):
         pr = gtt.page_rank(tg, gtt.PageRankConfig(max_iterations=12,
