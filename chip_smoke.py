@@ -42,9 +42,12 @@ m = 67,108,864, seed 42):
   its plan to a cache of the phase's own, and the CLI reads it back;
 * ``global_triangle_count`` on the same edges built DEDUPLICATED on the
   card (distinct triangles), unchanged by ``make_degree_ordered``, with
-  its preparation, card seconds and one slab of the lookup join
-  timed; at scale 16 the distinct count against scipy and the SORTED
-  multiset count against a host model;
+  its preparation and card seconds and its one launch of the join kernel
+  (``tc_count``); the kernel timed alone on the count's forward CSR
+  beside its plain version, with its bounds, and four head ranges adding
+  up to its count; at
+  scale 16 the distinct count and the kernel alone against scipy and the
+  SORTED multiset count against a host model;
 * the multi-device paths on a mesh of four shards sharing the card
   (``Mesh([cuda] * 4)``): the row-block engines of PageRank, WCC and
   SSSP built (partition, halo and plans timed) and their ``spmv``,
@@ -52,7 +55,8 @@ m = 67,108,864, seed 42):
   engines'; ``page_rank``, ``wcc``, ``delta_stepping`` and
   ``global_triangle_count`` through ``use_mesh``, held to the phases
   above (PageRank to the same iterations and 1e-6, the rest exactly),
-  with K1 and K2 launched exactly once a shard an iteration; and both
+  with K1 and K2 launched exactly once a shard an iteration and
+  ``tc_count`` once a shard a count; and both
   PageRank routes timed, ``page_rank_rowblock`` against
   ``page_rank_sharded`` (blocking and ring, bit-equal to each other);
 * the segment-op engines (PageRank ``cumsum``/``scatter``, the logged
@@ -103,7 +107,8 @@ reported; the device loop's ``loop.run`` span gives the graph's CUDA-event
 time and its launches.
 It prints one JSON line per phase; the line before the last lists the
 kernels, with each design's facts (K2's tile, K1's window and the share
-of slots it serves, a probe's window or depth), and the last line is
+of slots it serves, a probe's window or depth, the triangle join's tiles),
+and the last line is
 ``{"ok": true, "device": {...}}``.
 Any failed check exits non-zero without that line, as does a machine
 without a CUDA device.
@@ -1092,17 +1097,49 @@ def host_multiset_triangles(g):
     return int((m @ m).multiply(b).sum())
 
 
+def tc_count_reads(offsets, targets):
+    """The bytes ``kernels.tc_count`` reads from memory over all heads of
+    a forward CSR, by its scheme: for each scheduled head, its two offsets
+    and its list, once; for each of its tiles, the neighbours that may
+    close a wedge in it (each N+(u)[i] with i + 1 below the tile's end and
+    below d+(u)), each with its id, two offsets and whole list."""
+    import torch
+
+    from graph_tpu_torch.engine import kernels
+
+    deg = torch.diff(offsets)
+    n = deg.numel()
+    heads = torch.repeat_interleave(torch.arange(n, device=deg.device), deg)
+    tl = torch.where(deg > kernels.TC_LONG, kernels.TC_TILE,
+                     kernels.TC_WARP_TILE)
+    d, t = deg[heads], tl[heads]
+    pos = torch.arange(heads.numel(), device=deg.device) - offsets[:-1][heads]
+    # the tiles that N+(u)[i] meets: those past the one that holds i + 1
+    tiles = torch.where(pos + 1 < d, (d + t - 1) // t - (pos + 1) // t, 0)
+    nd = deg.index_select(0, targets.long())
+    sched = deg >= 2
+    staged = int((16 * sched + 4 * deg * sched).sum())
+    return staged + int((tiles * (20 + 4 * nd)).sum())
+
+
 def triangles_phase(gtt, dev, src, dst, n):
-    """Triangle count at scale 22 on the card (distinct, DEDUPLICATED),
-    unchanged by the degree relabel; the lookup join timed on one full
-    slab; at scale 16 the distinct count and the join alone against
-    scipy, and the multiset count (SORTED, relabeled) against a host
-    model.  Returns the scale-22 count
-    and its DEDUPLICATED graph."""
+    """Triangle count at scale 22 on the card (distinct, DEDUPLICATED; the
+    Graph500 Kronecker edges made undirected and deduplicated, GAP's kron
+    graph), unchanged by the degree relabel; the join kernel timed alone
+    on the count's forward CSR beside its plain version (the emission and
+    ``searchsorted`` join), with two bounds (the forward CSR read once,
+    and the bytes the kernel's scheme reads, each over the HBM rate), and
+    the head ranges of ``MESH_SHARDS`` shards adding up to its count; at
+    scale 16 the distinct count and the kernel alone against scipy, and
+    the multiset count (SORTED, relabeled) against a host model.  Returns
+    the scale-22 count, its DEDUPLICATED graph and the kernel's row of the
+    kernel table (the count's launches under ``launches_by_path``)."""
     import torch
 
     from graph_tpu_torch.algos import triangle_count as tc
+    from graph_tpu_torch.engine import kernels
     from graph_tpu_torch.generate import host_rmat
+    from graph_tpu_torch.parallel.tc import head_ranges
 
     out = {}
     t0 = time.perf_counter()
@@ -1110,9 +1147,10 @@ def triangles_phase(gtt, dev, src, dst, n):
                               layout=gtt.CsrLayout.DEDUPLICATED)
     _sync()
     out["build_undirected_s"] = time.perf_counter() - t0
-    # keep the preparation the count makes, for the per-slab timing
+    # keep the preparation the count makes, for the kernel's timing
     prepare, kept = tc._prepare_distinct, []
     tc._prepare_distinct = lambda *a: kept.append(prepare(*a)) or kept[-1]
+    kernels.reset_launches()
     try:
         _sync()
         t0 = time.perf_counter()
@@ -1122,6 +1160,9 @@ def triangles_phase(gtt, dev, src, dst, n):
     finally:
         tc._prepare_distinct = prepare
     check(res.triangles > 0, f"triangles: counted {res.triangles}")
+    used = {k: v for k, v in kernels.LAUNCHES.items() if v}
+    check(used == {"tc_count": 1},
+          f"triangles: the count launched {used}, not tc_count once")
     out.update(triangles=res.triangles, micros=res.micros, **res.phases)
     out["wedges_per_s_on_card"] = res.phases["wedges"] / res.phases["join_s"]
 
@@ -1135,19 +1176,61 @@ def triangles_phase(gtt, dev, src, dst, n):
     del rel
     free_device()
 
-    # the lookup join on one full slab of the 64-wide class
-    mats, _, a, b = kept[0]
-    mat = mats[64]
-    rows = max(1, tc.SLAB // (64 * 63 // 2))
-    v, w = tc._emit_intra(mat[:rows], 64)
-    keys = tc._edge_keys(a, b, dev)
-    out["one_slab"] = {
-        "wedge_slots": v.numel(),
-        "matches": int(tc._lookup_count(v, w, keys)),
-        "lookup_ms": time_ms(lambda: tc._lookup_count(v, w, keys), reps=5),
-        "edge_keys_sort_ms": time_ms(lambda: tc._edge_keys(a, b, dev),
-                                     reps=3)}
-    del mats, kept, mat, v, w, keys
+    # the join kernel alone on the count's forward CSR: the whole, then
+    # the shards' head ranges, against the count; its time beside the
+    # plain version's
+    fwd = kept[0]
+    del kept
+    kernels.reset_launches()
+    count = int(kernels.tc_count(*fwd))
+    check(count == res.triangles, f"triangles: the kernel counts {count}, "
+          f"the count {res.triangles}")
+    bounds = head_ranges(fwd.offsets, MESH_SHARDS)
+    parts = [int(kernels.tc_count(*fwd, lo, hi))
+             for lo, hi in zip(bounds, bounds[1:])]
+    check(sum(parts) == count, f"triangles: {MESH_SHARDS} head ranges "
+          f"count {parts}, the whole {count}")
+    launches = kernels.LAUNCHES["tc_count"]
+    check(launches == 1 + MESH_SHARDS,
+          f"triangles: {launches} kernel launches for {1 + MESH_SHARDS} "
+          "ranges")
+    plain = int(kernels.tc_count_plain(fwd.offsets, fwd.targets, 0, n))
+    check(plain == count, f"triangles: the plain join counts {plain}, the "
+          f"kernel {count}")
+    m_f = fwd.targets.numel()
+    csr_bytes = 8 * (n + 1) + 4 * m_f
+    scheme_bytes = tc_count_reads(fwd.offsets, fwd.targets)
+    out["join_kernel"] = {
+        "forward_edges": m_f, "long_heads": fwd.long_heads.numel(),
+        "short_heads": fwd.short_heads.numel(),
+        "max_forward_degree": int(torch.diff(fwd.offsets).max()),
+        "ms": time_ms(lambda: kernels.tc_count(*fwd), reps=5),
+        "plain_ms": time_ms(lambda: kernels.tc_count_plain(
+            fwd.offsets, fwd.targets, 0, n), reps=1),
+        "bound_ms_csr_once": csr_bytes / HBM_BYTES_PER_S * 1e3,
+        "bound_ms_scheme": scheme_bytes / HBM_BYTES_PER_S * 1e3,
+        "csr_bytes": csr_bytes, "scheme_bytes": scheme_bytes,
+        "count": count, "plain_count": plain,
+        "shards": {"ranges": bounds, "counts": parts},
+        "launches": launches}
+    jk = out["join_kernel"]
+    tc_row = {
+        "name": "tc_count", "path": "triangles", "route": "cuda",
+        "source": "graph_tpu_torch/csrc/tc_count.cu",
+        "replaces": "none: graph_tpu's join is an XLA sort of wedges and "
+                    "edge keys (graph_tpu/algos/triangle_count.py:100 "
+                    "_join_count); no pl.pallas_call",
+        "launches_by_path": {"triangles": used["tc_count"]},
+        "max_abs_err": abs(count - plain), "ms": jk["ms"],
+        "plain_ms": jk["plain_ms"], "bound_ms": jk["bound_ms_csr_once"],
+        "bound_by": "bytes (the forward CSR read once)",
+        "bound_ms_scheme": jk["bound_ms_scheme"], "library_ms": None,
+        "library": "none: no PyTorch call counts triangles",
+        "bytes": csr_bytes, "scheme_bytes": scheme_bytes,
+        "shapes": f"n={n}, forward_edges={m_f}",
+        "tile": kernels.TC_TILE, "warp_tile": kernels.TC_WARP_TILE,
+        "long_class_above": kernels.TC_LONG}
+    del fwd
     free_device()
 
     # checks 2 and 3 at TC_CHECK_SCALE (the multiset count's wedges)
@@ -1162,13 +1245,14 @@ def triangles_phase(gtt, dev, src, dst, n):
     check(distinct.triangles == want,
           f"triangles at scale {TC_CHECK_SCALE}: {distinct.triangles}, "
           f"scipy {want}")
-    prep = tc._prepare_distinct(cg, {}, dev)
+    fwd = tc._prepare_distinct(cg, {}, dev)
     _sync()
     t0 = time.perf_counter()
-    count = tc._run_join(*prep, device=dev)
+    count = int(kernels.tc_count(*fwd))
     join = {"count": count, "s": time.perf_counter() - t0}
-    check(count == want, f"triangles: the join counts {count}, scipy "
+    check(count == want, f"triangles: the kernel counts {count}, scipy "
           f"{want}")
+    del fwd
     gs = gtt.make_degree_ordered(gtt.build_undirected(
         c_src, c_dst, node_count=cn, device=dev,
         layout=gtt.CsrLayout.SORTED))
@@ -1187,7 +1271,7 @@ def triangles_phase(gtt, dev, src, dst, n):
                                         "multiset wedges", **cm.phases}}
     emit({"phase": "triangles", "scale": SCALE, "n": n, "m": int(src.size),
           **out})
-    return res.triangles, ug
+    return res.triangles, ug, tc_row
 
 
 def grid_edges(side):
@@ -1813,7 +1897,8 @@ def mesh_phase(gtt, kernels, dev, card, graph, wgraph, start, ug, x_t,
     (``spmv``, ``smin_int``, ``relax``); ``page_rank``, ``wcc``,
     ``delta_stepping`` and ``global_triangle_count`` through ``use_mesh``
     held to the earlier phases' results, with K1/K2 launched once a shard
-    an iteration; and both PageRank routes timed, ``page_rank_rowblock``
+    an iteration and ``tc_count`` once a shard; and both PageRank routes
+    timed, ``page_rank_rowblock``
     against ``page_rank_sharded`` (blocking and ring)."""
     import torch
 
@@ -1902,6 +1987,7 @@ def mesh_phase(gtt, kernels, dev, card, graph, wgraph, start, ug, x_t,
         check(torch_equal(res.distances, sssp_res.distances),
               "mesh: SSSP distances differ from the sssp phase's")
         out["sssp"] = {"rounds": res.ran_iterations, "start_node": start}
+        kernels.reset_launches()
         _sync()
         t0 = time.perf_counter()
         tc = gtt.global_triangle_count(ug)
@@ -1909,6 +1995,11 @@ def mesh_phase(gtt, kernels, dev, card, graph, wgraph, start, ug, x_t,
         check(tc.triangles == triangles,
               f"mesh: {tc.triangles} triangles, the triangles phase "
               f"{triangles}")
+        launches["triangles"] = {k: v for k, v in kernels.LAUNCHES.items()
+                                 if v}
+        check(launches["triangles"] == {"tc_count": P_},
+              f"mesh: the count launched {launches['triangles']}, not "
+              f"tc_count once a shard ({P_})")
         out["triangles"] = {"triangles": tc.triangles, **tc.phases}
     out["run_s"] = runs
     out["launches"] = launches
@@ -3102,7 +3193,7 @@ def run(rmat):
     api = api_server_phase(k, card, n, m, cfg, res, wcc_labels, wcc_rounds)
 
     # 7. triangle count; the segment-op engines; the out-of-core engine
-    triangles, ug = triangles_phase(gtt, dev, src, dst, n)
+    triangles, ug, tc_row = triangles_phase(gtt, dev, src, dst, n)
     # the multi-device paths on a mesh of shards sharing the card
     mesh_launches = mesh_phase(gtt, k, dev, card, graph, wgraph, start, ug,
                                x_t, res, wcc_labels, sssp_res, triangles)
@@ -3252,6 +3343,11 @@ def run(rmat):
         for group, paths in by_path.items() for path, runs in paths.items()}
     loop_row["launches"] = sum(loop_row["launches_by_path"].values())
     check(loop_row["launches"] > 0, "the device loop was never launched")
+    # the triangle join's kernel: one launch a count, one a shard on the mesh
+    tc_row["launches_by_path"]["mesh"] = mesh_launches["triangles"][
+        "tc_count"]
+    tc_row["launches"] = sum(tc_row["launches_by_path"].values())
+    table.append(tc_row)
 
     # 9. the K1 gather probes' line (step 3), with K1's own rate at each
     # window beside them; the K2 stream probes, with K2's own rate beside

@@ -1,29 +1,28 @@
-"""Global triangle count: orient, pack and join wedges on the device.
+"""Global triangle count: orient, then intersect forward lists on the
+device.
 
 Counterpart of ``graph_tpu.algos.triangle_count`` (reference analog:
 ``global_triangle_count``, crates/algos/src/triangle_count.rs:22-86).
-The work is ``graph_tpu``'s, in three steps, all where the join runs
-(the card, or the CPU when asked for):
+The distinct count takes three steps, all where the join runs (the card,
+or the CPU when asked for):
 
 1. **Orient**: rank nodes by ascending degree (ties by id) and keep each
    edge from its lower to its higher rank, sorted by (rank, rank)
    (:func:`_orient`).  Forward degree is then bounded by about sqrt(m),
    so the wedge count W = sum C(d+, 2) stays near 50 m on power-law
    graphs.
-2. **Pack**: forward lists packed into per-degree-class chunk matrices
-   (rows padded with ``SENT`` to caps 4/8/16/32/64; longer lists split
-   into 64-wide chunks whose cross pairs are outer products;
-   :func:`_pack_chunks`), bit for bit ``graph_tpu``'s host packing.
-3. **Emit and join**, about ``SLAB`` wedges per step: wedges are
-   emitted by slices and broadcasts (:func:`_emit_intra`,
-   :func:`_emit_cross`), and a wedge (v, w) counts when (v, w) is an edge.
-
-The join differs from ``graph_tpu``'s, with the same count.  A TPU
-sorts fast and gathers slowly, so ``graph_tpu`` sorts every slab's
-wedges together with all edge keys (its ``_join_count``).  A GPU
-searches well: the edge keys are sorted once and each wedge is looked
-up with ``torch.searchsorted`` (:func:`_lookup_count`).  Per-slab counts
-stay on the device; the host reads sizes and the total once.
+2. **Pack**: the forward edges as a CSR in rank space, the offsets of
+   the forward lists beside their sorted targets, and the join's schedule
+   of heads by class (:func:`_forward_csr`,
+   :func:`~graph_tpu_torch.engine.kernels.tc_schedule`).
+3. **Join**: :func:`~graph_tpu_torch.engine.kernels.tc_count`, which
+   counts, for every forward edge (u, v), the targets N+(u) and N+(v)
+   share.  On a card it is one hand-written kernel (``csrc/tc_count.cu``)
+   that stages each forward list on chip and intersects it with its
+   neighbours' lists: no wedge is written and no key searched for.  On the
+   CPU it is its plain version, ``graph_tpu``'s scheme of wedges packed,
+   emitted and looked up among the edge keys
+   (:mod:`graph_tpu_torch.engine.tc_join`).
 
 Layout semantics (the reference's):
 
@@ -41,9 +40,11 @@ device): ``triangle_count.run`` around the timed region (counters
 ``forward_edges``, ``wedges``, ``wedge_slots``, ``slabs``, as in the
 result's ``phases``); inside it ``triangle_count.orient``
 (``forward_edges``, and ``on_card``: 1 where the device is a card),
-``triangle_count.pack`` (``wedges``, ``rows``), each ending once its
-device work has, and ``triangle_count.join`` (``wedge_slots``,
-``slabs``, and ``device_ms`` from CUDA events on a card).
+``triangle_count.pack`` (``wedges``, ``heads`` scheduled, of them
+``long_heads``), each ending once its device work has, and
+``triangle_count.join`` (``wedge_slots``: the wedges the join covers, W
+without pads; ``slabs``: its calls, one kernel launch each on a card; and
+``device_ms`` from CUDA events on a card).
 
 Under a default mesh of more than one shard
 (:func:`graph_tpu_torch.parallel.use_mesh`) the DEDUPLICATED count
@@ -56,21 +57,17 @@ from __future__ import annotations
 
 import dataclasses
 import time
-from typing import Optional
+from typing import NamedTuple, Optional
 
 import numpy as np
 import torch
 
 from graph_tpu_torch import profile
 from graph_tpu_torch.device import concrete_device, run_device, synchronize
+from graph_tpu_torch.engine import kernels
+from graph_tpu_torch.engine.tc_join import CLASS_CAPS, SENT, _run_join
 from graph_tpu_torch.graph.csr import Csr, CsrLayout, UndirectedCsrGraph
 
-#: Degree-class caps; lists longer than the last cap split into chunks.
-CLASS_CAPS = (4, 8, 16, 32, 64)
-#: Sentinel id (sorts after any real id; never matches an edge key).
-SENT = 1 << 29
-#: Wedge slots per join step.
-SLAB = 1 << 25
 #: The ``phases`` entries that the ``triangle_count.run`` span counts.
 RUN_COUNTERS = ("forward_edges", "wedges", "wedge_slots", "slabs")
 
@@ -82,61 +79,27 @@ class TriangleCountResult:
 
     triangles: int
     micros: int
-    #: where the time went: host orientation and packing seconds, device
-    #: join seconds, forward edges, wedges, wedge slots (with pads) and
-    #: join steps (slabs)
+    #: where the time went: orientation and packing seconds, join
+    #: seconds, forward edges, wedges, wedge slots and join steps (slabs):
+    #: on the DEDUPLICATED path the wedges the join covers and its calls
+    #: (kernel launches on a card), on the SORTED one the slots emitted
+    #: (with pads) and their steps
     phases: Optional[dict] = None
 
 
-# ---------------------------------------------------------------------------
-# device pieces
+class Forward(NamedTuple):
+    """The oriented graph as a CSR in rank space, with the join's
+    schedule (:func:`~graph_tpu_torch.engine.kernels.tc_schedule`): all
+    tensors on the join's device."""
 
-
-def _emit_intra(chunk: torch.Tensor, cap: int):
-    """All ordered pairs (i < j) within each row, via slices."""
-    vs = [chunk[:, : cap - s].reshape(-1) for s in range(1, cap)]
-    ws = [chunk[:, s:].reshape(-1) for s in range(1, cap)]
-    return torch.cat(vs), torch.cat(ws)
-
-
-def _emit_cross(rows_a: torch.Tensor, rows_b: torch.Tensor):
-    """Full outer products rows_a[i] x rows_b[i], via broadcasting."""
-    r, c = rows_a.shape
-    shape = (r, c, rows_b.shape[1])
-    v = rows_a[:, :, None].expand(shape)
-    w = rows_b[:, None, :].expand(shape)
-    return v.reshape(-1), w.reshape(-1)
-
-
-def _edge_keys(ev, ew, device: torch.device) -> torch.Tensor:
-    """Edge pairs as sorted int64 keys ``v << 30 | w`` on ``device``
-    (ids below ``SENT`` = 2**29, so a key holds both)."""
-    ev = torch.as_tensor(ev, device=device).long()
-    ew = torch.as_tensor(ew, device=device).long()
-    return torch.sort((ev << 30) | ew).values
-
-
-def _lookup_count(v: torch.Tensor, w: torch.Tensor,
-                  keys: torch.Tensor) -> torch.Tensor:
-    """Count wedges (v, w) whose key is among the sorted edge ``keys``
-    (:func:`_edge_keys`).  A wedge with a ``SENT`` end has a key no edge
-    has.  Returns a 0-dim int64 tensor on the inputs' device."""
-    q = (v.long() << 30) | w.long()
-    i = torch.searchsorted(keys, q, out_int32=True)
-    return (keys[i.clamp_(max=keys.numel() - 1)] == q).sum()
+    offsets: torch.Tensor  # (n+1,) int64: where each forward list starts
+    targets: torch.Tensor  # int32: the lists, each sorted
+    long_heads: torch.Tensor  # int32
+    short_heads: torch.Tensor  # int32
 
 
 # ---------------------------------------------------------------------------
 # preparation (where the join runs)
-
-
-def _ragged(counts: torch.Tensor):
-    """For segments of lengths ``counts``, each element's segment and its
-    place in it, over all ``counts.sum()`` elements in segment order."""
-    seg = torch.repeat_interleave(
-        torch.arange(counts.numel(), device=counts.device), counts)
-    first = torch.cumsum(counts, 0) - counts
-    return seg, torch.arange(seg.numel(), device=seg.device) - first[seg]
 
 
 def _orient(csr: Csr, m_real: int, device: torch.device):
@@ -159,106 +122,13 @@ def _orient(csr: Csr, m_real: int, device: torch.device):
     return key >> 30, (key & ((1 << 30) - 1)).to(torch.int32)
 
 
-def _pack_chunks(heads: torch.Tensor, items: torch.Tensor, n: int):
-    """Pack ragged lists (grouped by ``heads`` below ``n``, already
-    sorted) into per-degree-class chunk matrices, on their device.
-
-    ``graph_tpu``'s ``_pack_chunks``, bit for bit: a list of length d,
-    2 <= d <= 32, is one row of the smallest cap at least d; a longer one
-    is ceil(d / 64) rows of 64; rows follow their heads' order and pad
-    with ``SENT``.  All matrices are views of one buffer, filled by one
-    scatter.  Returns ({cap: (rows, cap) int32 matrix}, the (pairs_a,
-    pairs_b) chunk-row matrices whose outer products cover the cross-chunk
-    pairs of the long lists, or None, and the lists' lengths (n,))."""
-    dev = heads.device
-    top = CLASS_CAPS[-1]
-    deg = torch.bincount(heads, minlength=n)
-    # a node's class: 0 for lists of length < 2 (no pairs), else
-    # 1 + the index of its cap in CLASS_CAPS
-    cls = torch.bucketize(deg, torch.tensor((1,) + CLASS_CAPS[:-1],
-                                            device=dev))
-    caps = torch.tensor((0,) + CLASS_CAPS, device=dev)[cls]
-    rows = torch.where(cls == len(CLASS_CAPS), (deg + top - 1) // top,
-                       (cls > 0).long())
-    # slots laid out class by class, nodes in order within a class
-    by_class = torch.sort(cls, stable=True).indices
-    slots = (rows * caps)[by_class]
-    base = torch.empty_like(deg)
-    base[by_class] = torch.cumsum(slots, 0) - slots
-    per_class = torch.zeros(len(CLASS_CAPS) + 1, dtype=torch.int64,
-                            device=dev).index_add_(0, cls, rows).tolist()
-    total = sum(r * c for r, c in zip(per_class[1:], CLASS_CAPS))
-    flat = torch.full((total,), SENT, dtype=torch.int32, device=dev)
-    starts = torch.cumsum(deg, 0) - deg
-    keep = cls.index_select(0, heads) > 0
-    at = (torch.arange(heads.numel(), device=dev)
-          + (base - starts).index_select(0, heads))
-    flat[at[keep]] = items[keep]
-
-    mats, off = {}, 0
-    for r, cap in zip(per_class[1:], CLASS_CAPS):
-        if r:
-            mats[cap] = flat[off: off + r * cap].view(r, cap)
-        top_base, off = off, off + r * cap
-    cross = None
-    if top in mats:
-        # cross-chunk row pairs (i < j) of each long list: lists grouped
-        # by chunk count, in head order within a group, pairs row-major
-        long_ = torch.nonzero((cls == len(CLASS_CAPS)) & (rows > 1))[:, 0]
-        if long_.numel():
-            nc = rows[long_]
-            group = torch.sort(nc, stable=True).indices
-            nc = nc[group]
-            r0 = (base[long_[group]] - top_base) // top
-            k, i = _ragged(nc - 1)
-            r, dj = _ragged(nc[k] - 1 - i)
-            pa = (r0[k] + i)[r]
-            mat = mats[top]
-            cross = (mat[pa], mat[pa + 1 + dj])
-    return mats, cross, deg
-
-
-def _groups(pairs_per_row: int, rows: int):
-    """Row ranges of about ``SLAB`` wedge slots each."""
-    rows_per = max(1, SLAB // max(pairs_per_row, 1))
-    return [(r, min(r + rows_per, rows)) for r in range(0, rows, rows_per)]
-
-
-def _run_join(mats, cross, ev, ew, cross_full=None, *,
-              device: torch.device, phases: Optional[dict] = None) -> int:
-    """Emit wedges group by group on ``device`` and look them up among
-    the edge keys (ev, ew).
-
-    ``mats``/``cross`` hold the intra-list pairs (distinct path);
-    ``cross_full`` (multiset path) are (A, B) matrices whose outer
-    products are the wedges G(v) x F(v).  Tensors or host arrays: each
-    matrix not on the device goes there once; each group of rows emits
-    about ``SLAB`` wedge slots and counts the matches
-    (:func:`_lookup_count`).  Counts add up on the device and the host
-    reads the total once.  ``phases``, when given, gets the wedge slots
-    and join steps.
-    """
-    keys = _edge_keys(ev, ew, device)
-    total = torch.zeros((), dtype=torch.int64, device=device)
-    slots = steps = 0
-    for cap, mat in (mats or {}).items():
-        mat_d = torch.as_tensor(mat, device=device)
-        for r0, r1 in _groups(cap * (cap - 1) // 2, mat.shape[0]):
-            v, w = _emit_intra(mat_d[r0:r1], cap)
-            total += _lookup_count(v, w, keys)
-            slots, steps = slots + v.numel(), steps + 1
-    for pair in (cross, cross_full):
-        if pair is None:
-            continue
-        a_d, b_d = (torch.as_tensor(m, device=device) for m in pair)
-        per_row = a_d.shape[1] * b_d.shape[1]
-        for r0, r1 in _groups(per_row, a_d.shape[0]):
-            v, w = _emit_cross(a_d[r0:r1], b_d[r0:r1])
-            total += _lookup_count(v, w, keys)
-            slots, steps = slots + v.numel(), steps + 1
-    if phases is not None:
-        phases.update(wedge_slots=slots, slabs=steps)
-    return int(total)  # the one host read
+def _forward_csr(a: torch.Tensor, b: torch.Tensor, n: int):
+    """The forward edges (a, b) of :func:`_orient` as a :class:`Forward`
+    on their device, and the forward degrees (n,)."""
+    deg = torch.bincount(a, minlength=n)
+    offsets = torch.zeros(n + 1, dtype=torch.int64, device=a.device)
+    torch.cumsum(deg, 0, out=offsets[1:])
+    return Forward(offsets, b, *kernels.tc_schedule(offsets)), deg
 
 
 # ---------------------------------------------------------------------------
@@ -299,15 +169,14 @@ def global_triangle_count(graph: UndirectedCsrGraph, *,
     with profile.span("triangle_count.run") as sp:
         start = time.perf_counter()
         phases = {}
-        prep = _prepare_distinct(graph, phases, device)
+        fwd = _prepare_distinct(graph, phases, device)
         count = 0
-        if prep is not None:
-            mats, cross, a, b = prep
+        if fwd is not None:
             t0 = time.perf_counter()
             with profile.span("triangle_count.join") as jp:
                 jp.cuda_events(device)
-                count = _run_join(mats, cross, a, b, device=device,
-                                  phases=phases)
+                count = int(kernels.tc_count(*fwd))  # the one host read
+                phases.update(wedge_slots=phases["wedges"], slabs=1)
                 if jp:
                     jp.count(wedge_slots=phases["wedge_slots"],
                              slabs=phases["slabs"])
@@ -324,13 +193,11 @@ def _check_node_count(n: int) -> None:
 
 
 def _prepare_distinct(graph: UndirectedCsrGraph, phases: dict,
-                      device: torch.device):
-    """Preparation for distinct counting on ``device``: orient, then pack.
-
-    Returns (mats, cross, a, b), tensors on ``device``: the degree-class
-    chunk matrices, the cross-chunk row pairs and the oriented edge keys;
-    or None for an empty graph.  Each phase ends once its device work
-    has; records their seconds, forward edges and wedges in ``phases``."""
+                      device: torch.device) -> Optional[Forward]:
+    """Preparation for distinct counting on ``device``: orient, then the
+    forward CSR and the join's schedule (:class:`Forward`); None for an
+    empty graph.  Each phase ends once its device work has; records their
+    seconds, forward edges and wedges in ``phases``."""
     t0 = time.perf_counter()
     n = graph.node_count
     # a padded graph carries a sentinel tail: the real edge count is
@@ -347,14 +214,16 @@ def _prepare_distinct(graph: UndirectedCsrGraph, phases: dict,
                  on_card=int(device.type == "cuda"))
     t1 = time.perf_counter()
     with profile.span("triangle_count.pack") as sp:
-        mats, cross, fdeg = _pack_chunks(a, b, n)
+        fwd, fdeg = _forward_csr(a, b, n)
+        del a
         wedges = int((fdeg * (fdeg - 1) // 2).sum())
         synchronize(device)
-        sp.count(wedges=wedges,
-                 rows=sum(m.shape[0] for m in mats.values()))
+        sp.count(wedges=wedges, heads=int(fwd.long_heads.numel()
+                                          + fwd.short_heads.numel()),
+                 long_heads=int(fwd.long_heads.numel()))
     phases.update(orient_s=t1 - t0, pack_s=time.perf_counter() - t1,
-                  forward_edges=int(a.numel()), wedges=wedges)
-    return mats, cross, a, b
+                  forward_edges=int(b.numel()), wedges=wedges)
+    return fwd
 
 
 def _multiset_triangle_count(graph: UndirectedCsrGraph,

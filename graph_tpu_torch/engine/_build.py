@@ -42,6 +42,7 @@ SIGNATURES = {
     "k2_reduce_min": (_P, _P, _P, _P, _P, _I64, _I64, _I64, _I32, _P),
     "jacobi_quantize": (_P, _P, _P, _I64, _I32, _P),
     "jacobi_update": (_P, _P, _P, _I64, _F32, _F32, _P, _P, _I32, _P),
+    "tc_count": (_P, _P, _P, _I64, _P, _I64, _I64, _I64, _P, _P),
     "probe_row_gather": (_P, _P, _P, _I64, _I32, _P),
     "probe_lanemap": (_P, _P, _P, _I64, _I32, _P),
     "probe_window_gather": (_P, _P, _P, _I64, _I32, _I32, _P),
@@ -71,6 +72,7 @@ SOURCES = {
     "k2_reduce_min": "k2_reduce",
     "jacobi_quantize": "jacobi_tails",
     "jacobi_update": "jacobi_tails",
+    "tc_count": "tc_count",
     "probe_row_gather": "k1_probes",
     "probe_lanemap": "k1_probes",
     "probe_window_gather": "k1_probes",

@@ -32,6 +32,11 @@ n-sized work in two kernels of its own (``csrc/jacobi_tails.cu``):
 :func:`jacobi_update` makes the new scores from K2's sums, with the
 residual.
 
+Triangle count's join is one kernel (``csrc/tc_count.cu``):
+:func:`tc_count` intersects each forward list, staged on chip, with its
+neighbours' lists, over the heads :func:`tc_schedule` sorts into long
+ones (a block each) and short ones (a warp each).
+
 Each wrapper runs its plain PyTorch version for tensors on the CPU.  For
 CUDA tensors it checks device, dtype, shape and contiguity, launches its
 kernel on the current stream (building it at first use) and raises if
@@ -45,7 +50,7 @@ from typing import Optional
 
 import torch
 
-from graph_tpu_torch.engine import _build
+from graph_tpu_torch.engine import _build, tc_join
 
 FIXED_BITS = 30  # fixed-point fraction bits
 INF = 3.0e38  # the min paths' +inf stand-in, as in graph_tpu
@@ -67,7 +72,8 @@ K2_TILE = 1920
 #: Kernel launches since the last :func:`reset_launches`.  A wrapper adds
 #: one where it launches its kernel, and nowhere else.
 LAUNCHES = {"k1_gather": 0, "k1_gather_weighted": 0, "k2_reduce": 0,
-            "k2_reduce_min": 0, "jacobi_quantize": 0, "jacobi_update": 0}
+            "k2_reduce_min": 0, "jacobi_quantize": 0, "jacobi_update": 0,
+            "tc_count": 0}
 #: The device function each wrapper launches once a call, as a pattern over
 #: mangled kernel names: a captured graph's kernel nodes are counted by it
 #: (:mod:`graph_tpu_torch.engine.loop`).
@@ -76,11 +82,21 @@ KERNEL_NODES = {"k1_gather": r"k1_gather_kernel",
                 "k2_reduce": r"k2_tile_kernel.*SumOp",
                 "k2_reduce_min": r"k2_tile_kernel.*MinOp",
                 "jacobi_quantize": r"jacobi_quantize_kernel",
-                "jacobi_update": r"jacobi_update_kernel"}
+                "jacobi_update": r"jacobi_update_kernel",
+                "tc_count": r"tc_count_kernel"}
 #: Threads a block of the Jacobi tail kernels, the ``kThreads`` of
 #: ``csrc/jacobi_tails.cu``, and the most blocks a launch takes.
 JACOBI_THREADS = 256
 JACOBI_MAX_BLOCKS = 4096
+#: Heads with more forward edges than this are a block's work in
+#: :func:`tc_count`; heads with 2 to this many, a warp's.
+TC_LONG = 64
+#: The most targets of one forward list that :func:`tc_count` stages at
+#: once, a block's and a warp's (the ``tile`` of ``BlockShape`` and
+#: ``WarpShape`` in ``csrc/tc_count.cu``); a longer list is counted tile by
+#: tile.
+TC_TILE = 1024
+TC_WARP_TILE = 64
 
 
 def reset_launches() -> None:
@@ -405,3 +421,67 @@ def jacobi_update(acc: torch.Tensor, scores: torch.Tensor, base: float,
             out.data_ptr(), n, base, d, work.data_ptr(), err.data_ptr(),
             blocks)
     return out, err
+
+
+def tc_schedule(offsets: torch.Tensor):
+    """The heads :func:`tc_count` counts, by class, from the forward CSR's
+    ``offsets``: (long_heads, short_heads), int32 and ascending, the heads
+    with more than ``TC_LONG`` forward edges and those with 2 to
+    ``TC_LONG`` (a head with fewer closes no wedge)."""
+    deg = torch.diff(offsets)
+    long_heads = torch.nonzero(deg > TC_LONG)[:, 0].to(torch.int32)
+    short_heads = torch.nonzero((deg >= 2) & (deg <= TC_LONG))[:, 0].to(
+        torch.int32)
+    return long_heads, short_heads
+
+
+def tc_count_plain(offsets: torch.Tensor, targets: torch.Tensor, h0: int,
+                   h1: int) -> torch.Tensor:
+    """Plain version of :func:`tc_count`: the wedges of the heads in
+    [h0, h1), packed into degree-class chunk matrices and emitted, each
+    looked up among the keys of all forward edges by ``torch.searchsorted``
+    (:mod:`graph_tpu_torch.engine.tc_join`).  Returns a 0-dim int64 tensor
+    on the inputs' device."""
+    n = offsets.numel() - 1
+    device = targets.device
+    heads = torch.repeat_interleave(torch.arange(n, device=device),
+                                    torch.diff(offsets))
+    lo, hi = int(offsets[h0]), int(offsets[h1])
+    mats, cross, _ = tc_join._pack_chunks(heads[lo:hi], targets[lo:hi], n)
+    count = tc_join._run_join(mats, cross, heads, targets, device=device)
+    return torch.tensor(count, dtype=torch.int64, device=device)
+
+
+def tc_count(offsets: torch.Tensor, targets: torch.Tensor,
+             long_heads: torch.Tensor, short_heads: torch.Tensor,
+             h0: int = 0, h1: Optional[int] = None) -> torch.Tensor:
+    """Triangles of a graph oriented by rank, over the heads in [h0, h1):
+    the sum over those heads u and over i < j of
+    ``[N+(u)[j] in N+(N+(u)[i])]``, where N+(u) =
+    ``targets[offsets[u]:offsets[u+1]]``.
+
+    offsets: (n+1,) int64 from 0; targets: int32 ids below n, each list
+    sorted and above its head; ``long_heads``, ``short_heads``:
+    :func:`tc_schedule` of ``offsets``, the heads the kernel counts (the
+    plain version counts every head in the range; a head in either class
+    gives the same count, only the time differs).  Returns a 0-dim int64
+    tensor on the inputs' device; on the card the count is exact, added by
+    integer atomics, the same on every run.
+    """
+    n = offsets.numel() - 1
+    h0, h1 = int(h0), n if h1 is None else int(h1)
+    if not 0 <= h0 <= h1 <= n:
+        raise ValueError(f"head range [{h0}, {h1}) must lie in [0, {n}]")
+    if _on_cpu(offsets, targets, long_heads, short_heads):
+        return tc_count_plain(offsets, targets, h0, h1)
+    device = offsets.device
+    _check("offsets", offsets, torch.int64, device)
+    _check("targets", targets, torch.int32, device)
+    _check("long_heads", long_heads, torch.int32, device)
+    _check("short_heads", short_heads, torch.int32, device)
+    out = torch.zeros(3, dtype=torch.int64, device=device)
+    _launch("tc_count", device, offsets.data_ptr(), targets.data_ptr(),
+            long_heads.data_ptr(), long_heads.numel(),
+            short_heads.data_ptr(), short_heads.numel(), h0, h1,
+            out.data_ptr())
+    return out[0]

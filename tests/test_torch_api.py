@@ -25,8 +25,8 @@ from graph_tpu.api import FileFormat as JaxFileFormat
 from graph_tpu.api import Graph as JaxGraph
 from graph_tpu.api import Layout as JaxLayout
 from graph_tpu_torch import api
-from graph_tpu_torch.algos import triangle_count as ttc
 from graph_tpu_torch.api import DiGraph, FileFormat, Graph, Layout
+from graph_tpu_torch.engine import tc_join
 from graph_tpu_torch.generate import host_rmat
 from graph_tpu_torch.io.graph500 import write_graph500
 
@@ -60,7 +60,7 @@ def small_slab(monkeypatch):
     """graph_tpu pads each triangle join step to SLAB wedge slots (2**25),
     seconds on the CPU per step; the count does not depend on it."""
     monkeypatch.setattr(jtc, "SLAB", 1 << 20)
-    monkeypatch.setattr(ttc, "SLAB", 1 << 12)
+    monkeypatch.setattr(tc_join, "SLAB", 1 << 12)
 
 
 def load_both(cls, path, **kw):

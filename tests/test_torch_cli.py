@@ -20,8 +20,8 @@ import torch
 
 from graph_tpu.algos import triangle_count as jtc
 from graph_tpu.cli import main as jax_main
-from graph_tpu_torch.algos import triangle_count as ttc
 from graph_tpu_torch.cli import main
+from graph_tpu_torch.engine import tc_join
 from graph_tpu_torch.engine.plan import PLAN_CACHE_ENV
 
 from test_torch_api import write_inputs
@@ -41,7 +41,7 @@ def paths(tmp_path_factory):
 def small_slab(monkeypatch):
     """graph_tpu pads each triangle join step to 2**25 wedge slots."""
     monkeypatch.setattr(jtc, "SLAB", 1 << 20)
-    monkeypatch.setattr(ttc, "SLAB", 1 << 12)
+    monkeypatch.setattr(tc_join, "SLAB", 1 << 12)
 
 
 def run(argv):

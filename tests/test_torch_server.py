@@ -27,7 +27,7 @@ flight = pytest.importorskip("pyarrow.flight")
 
 from graph_tpu.algos import triangle_count as jtc
 from graph_tpu.server.flight import GraphFlightServer as JaxServer
-from graph_tpu_torch.algos import triangle_count as ttc
+from graph_tpu_torch.engine import tc_join
 from graph_tpu_torch.server.flight import GraphFlightServer
 
 from test_torch_api import write_inputs
@@ -46,7 +46,7 @@ def paths(tmp_path_factory):
 def small_slab(monkeypatch):
     """graph_tpu pads each triangle join step to 2**25 wedge slots."""
     monkeypatch.setattr(jtc, "SLAB", 1 << 20)
-    monkeypatch.setattr(ttc, "SLAB", 1 << 12)
+    monkeypatch.setattr(tc_join, "SLAB", 1 << 12)
 
 
 @pytest.fixture(scope="module")

@@ -348,7 +348,7 @@ def test_triangle_count_spans_hold_its_phases(host):
             return ttc.global_triangle_count(inner, device="cpu")
     else:
         inner, count = g._g, g.global_triangle_count
-    mats, _, _, _ = ttc._prepare_distinct(inner, {}, torch.device("cpu"))
+    fwd = ttc._prepare_distinct(inner, {}, torch.device("cpu"))
     with profile.record():
         res = count()
         phases = ttc.global_triangle_count(inner, device="cpu").phases
@@ -371,7 +371,9 @@ def test_triangle_count_spans_hold_its_phases(host):
         "forward_edges": phases["forward_edges"], "on_card": 0}
     assert pack["counters"] == {
         "wedges": phases["wedges"],
-        "rows": sum(m.shape[0] for m in mats.values())}
+        "heads": fwd.long_heads.numel() + fwd.short_heads.numel(),
+        "long_heads": fwd.long_heads.numel()}
+    assert phases["wedge_slots"] == phases["wedges"] and phases["slabs"] == 1
     assert join["counters"] == {
         "wedge_slots": phases["wedge_slots"], "slabs": phases["slabs"]}
     assert all(s["request"] == root["id"]
@@ -472,7 +474,8 @@ def test_page_rank_loop_launches_match_its_kernel_nodes_on_card(
         assert {name: sum(bool(re.search(pattern, n)) for n in names)
                 for name, pattern in kernels.KERNEL_NODES.items()} == {
             "k1_gather": 1, "k1_gather_weighted": 0, "k2_reduce": 1,
-            "k2_reduce_min": 0, "jacobi_quantize": 1, "jacobi_update": 1}
+            "k2_reduce_min": 0, "jacobi_quantize": 1, "jacobi_update": 1,
+            "tc_count": 0}
     bodies = res.ran_iterations
     assert bodies == 20
     assert run["counters"]["launches"] == {
@@ -514,7 +517,7 @@ def test_triangle_count_join_span_times_the_card(cuda_device):
     join, = _named(profile.spans(), "triangle_count.join")
     c = join["counters"]
     assert 0 < c["device_ms"] <= (join["end_us"] - join["start_us"]) * 1e-3
-    assert c["wedge_slots"] > 0 and c["slabs"] >= 1
+    assert c["wedge_slots"] > 0 and c["slabs"] == 1
 
 
 @pytest.mark.requires_cuda
@@ -531,8 +534,8 @@ def test_triangle_count_prepares_on_card(cuda_device):
                                       device=d,
                                       layout=gtt.CsrLayout.DEDUPLICATED)
                  for d in (cuda_device, "cpu"))
-    mats, cross, a, b = ttc._prepare_distinct(g, {}, cuda_device)
-    assert all(t.is_cuda for t in (a, b, *mats.values(), *(cross or ())))
+    fwd = ttc._prepare_distinct(g, {}, cuda_device)
+    assert all(t.is_cuda for t in fwd)
     with profile.record():
         res = gtt.global_triangle_count(g)
     spans = profile.spans()

@@ -17,8 +17,8 @@ from benchmark.generators import gap_kron
 from benchmark.reference import triangles
 from benchmark.tests.conftest import REPO, load_bench, small_copy
 from graph_tpu_torch import profile
-from graph_tpu_torch.algos import triangle_count as ttc
 from graph_tpu_torch.api import ID_DTYPE, Graph
+from graph_tpu_torch.engine import tc_join
 from graph_tpu_torch.graph.build import build_undirected
 from graph_tpu_torch.graph.csr import CsrLayout
 
@@ -128,7 +128,7 @@ def _plus_one(monkeypatch, reg):
 
 def _one_slab_skipped(monkeypatch, reg):
     """The first join step of every count adds nothing."""
-    lookup = ttc._lookup_count
+    lookup = tc_join._lookup_count
     joins = []
 
     def skipping(v, w, keys):
@@ -136,7 +136,7 @@ def _one_slab_skipped(monkeypatch, reg):
             return lookup(v, w, keys)
         joins[:] = [keys]
         return torch.zeros((), dtype=torch.int64, device=v.device)
-    monkeypatch.setattr(ttc, "_lookup_count", skipping)
+    monkeypatch.setattr(tc_join, "_lookup_count", skipping)
 
 
 @pytest.mark.parametrize("fault", [_plus_one, _one_slab_skipped],
