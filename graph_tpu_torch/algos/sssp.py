@@ -28,6 +28,14 @@ on the grid (PERF.md); under a default mesh of more than one shard
 (:func:`graph_tpu_torch.parallel.use_mesh`) it runs the sharded
 Bellman-Ford of :mod:`graph_tpu_torch.parallel.sssp` instead
 (:func:`~graph_tpu_torch.parallel.sssp.sssp_meshed`).
+
+Each single-device run is an ``sssp.run`` span
+(:mod:`graph_tpu_torch.profile`) with the counters ``rounds`` (the
+result's ``ran_iterations``) and ``relaxed``: the arc slots its
+relaxations read, pads included, worked out on the host from counts the
+run already has (``plan``: rounds × m; ``xla``: settle steps × m;
+``frontier``: settle steps × ``_FRONTIER_CAP`` × the padded adjacency's
+width).
 """
 
 from __future__ import annotations
@@ -121,7 +129,8 @@ def delta_stepping(graph: DirectedCsrGraph,
             synchronize(dist.device)
             micros = int((time.perf_counter() - start) * 1e6)
             if sp:
-                sp.count(rounds=steps)
+                sp.count(rounds=steps,
+                         relaxed=steps * graph.csr_in.targets.numel())
         return SsspResult(distances=dist, micros=micros,
                           ran_iterations=steps, host_reads=reads)
     return _sssp_plan(graph, config)
@@ -293,7 +302,8 @@ def _sssp_frontier(graph: DirectedCsrGraph, config) -> SsspResult:
         synchronize(dist.device)
         micros = int((time.perf_counter() - start) * 1e6)
         if sp:
-            sp.count(rounds=steps)
+            sp.count(rounds=steps,
+                     relaxed=steps * _FRONTIER_CAP * adj_t.shape[1])
     return SsspResult(distances=dist, micros=micros, ran_iterations=steps,
                       host_reads=reads)
 
@@ -333,7 +343,8 @@ def _sssp_plan(graph: DirectedCsrGraph, config) -> SsspResult:
         synchronize(dist.device)
         micros = int((time.perf_counter() - start) * 1e6)
         if sp:
-            sp.count(rounds=run.iterations)
+            sp.count(rounds=run.iterations,
+                     relaxed=run.iterations * eng.plan.m)
     # unreached sentinel: the reference keeps f32::MAX (sssp.rs:12)
     dist = dist.masked_fill(dist >= _PLAN_INF, float(INF))
     return SsspResult(distances=dist, micros=micros,

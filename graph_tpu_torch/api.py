@@ -282,13 +282,21 @@ class DiGraph(_GraphBase):
         return DiGraph(g, load_micros=int((time.perf_counter() - t0) * 1e6))
 
     @staticmethod
-    def from_numpy(arr: np.ndarray, layout=Layout.Unsorted,
-                   device=None) -> "DiGraph":
+    def from_numpy(arr: np.ndarray, layout=Layout.Unsorted, device=None, *,
+                   weights=None) -> "DiGraph":
+        """A directed graph of the ``(m, 2)`` edge array ``arr``;
+        ``weights``, of shape ``(m,)``, are its edges' values, which
+        ``delta_stepping`` needs."""
         with profile.span("graph.build"):
             arr = _edge_array(arr)
+            if weights is not None:
+                weights = np.asarray(weights)
+                if weights.shape != (arr.shape[0],):
+                    raise ValueError(f"expected ({arr.shape[0]},) weights, "
+                                     f"got {weights.shape}")
             return DiGraph(build_directed(
-                arr[:, 0], arr[:, 1], layout=layout, id_dtype=ID_DTYPE,
-                device=resolve_device(device)))
+                arr[:, 0], arr[:, 1], weights, layout=layout,
+                id_dtype=ID_DTYPE, device=resolve_device(device)))
 
     @staticmethod
     def from_pandas(df, layout=Layout.Unsorted, device=None) -> "DiGraph":
