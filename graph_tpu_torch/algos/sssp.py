@@ -11,8 +11,13 @@ Counterpart of ``graph_tpu.algos.sssp`` (reference analog:
 * ``"xla"``: delta-stepping with dense bucket masks over the in-CSR:
   the frontier is the pending nodes of the current bucket, relaxed by a
   gather and a segment-min over all edges.
-* ``"frontier"``: delta-stepping over a degree-padded adjacency matrix,
-  relaxing only up to ``_FRONTIER_CAP`` compacted frontier nodes a step.
+* ``"frontier"``: delta-stepping that relaxes only the out-arcs of the
+  current bucket's pending nodes.  On the card it runs over on-card
+  near/far queues (:func:`_sssp_near_far`: each settle step one launch
+  of ``kernels.sssp_frontier_relax`` over the out-CSR, each bucket one of
+  ``kernels.sssp_frontier_advance``; no step touches an n-sized array).
+  On the CPU it is ``graph_tpu``'s op chain: a degree-padded adjacency
+  matrix, up to ``_FRONTIER_CAP`` compacted frontier nodes a step.
 
 Every engine's loops are ``graph_tpu``'s ``while_loop``s
 (:func:`graph_tpu_torch.engine.loop.device_while`): on the card one CUDA
@@ -23,24 +28,31 @@ changed flag each round, or whether the bucket is empty each settle step
 and the next bucket each bucket.  Every engine's distances are exact f32
 path sums, the least fixpoint, so the engines agree bit for bit and
 match the reference golden ``[0, 4, 2, 9, 5, 20]`` (sssp.rs:283-313).
-``"auto"`` runs the plan engine, the fastest on the card on the RMAT and
-on the grid (PERF.md); under a default mesh of more than one shard
+``"auto"`` runs ``"frontier"`` on the card, whose work is the arcs of the
+nodes each bucket settles where the plan engine relaxes every arc each
+round (a high-diameter graph takes some 1,400 rounds of the plan engine
+and about one sweep of the graph on the near/far queues, PERF.md), and
+the plan engine on the CPU; under a default mesh of more than one shard
 (:func:`graph_tpu_torch.parallel.use_mesh`) it runs the sharded
 Bellman-Ford of :mod:`graph_tpu_torch.parallel.sssp` instead
 (:func:`~graph_tpu_torch.parallel.sssp.sssp_meshed`).
 
 Each single-device run is an ``sssp.run`` span
 (:mod:`graph_tpu_torch.profile`) with the counters ``rounds`` (the
-result's ``ran_iterations``) and ``relaxed``: the arc slots its
-relaxations read, pads included, worked out on the host from counts the
-run already has (``plan``: rounds × m; ``xla``: settle steps × m;
-``frontier``: settle steps × ``_FRONTIER_CAP`` × the padded adjacency's
-width).
+result's ``ran_iterations``: relaxation rounds or settle steps) and
+``relaxed``: on the card's ``"frontier"`` the arcs its settle steps
+relaxed, no pads, counted on the card and read back once after the loop
+(a host read the result's ``host_reads`` counts), beside ``buckets``, the
+buckets it settled; elsewhere the arc slots the relaxations read, pads
+included, worked out on the host from counts the run already has
+(``plan``: rounds × m; ``xla``: settle steps × m; ``frontier`` on the
+CPU: settle steps × ``_FRONTIER_CAP`` × the padded adjacency's width).
 """
 
 from __future__ import annotations
 
 import dataclasses
+import threading
 import time
 from typing import Optional, Tuple
 
@@ -49,17 +61,14 @@ import torch
 
 from graph_tpu_torch import profile
 from graph_tpu_torch.device import synchronize, to_host
+from graph_tpu_torch.engine import kernels
 from graph_tpu_torch.engine.engine import EdgeEngine, engine_for
 from graph_tpu_torch.engine.kernels import INF as _PLAN_INF
 from graph_tpu_torch.engine.loop import Flag, While, device_while, into
 from graph_tpu_torch.graph.csr import DirectedCsrGraph
 from graph_tpu_torch.ops.segment import segment_min_sorted
 
-INF = np.float32(np.finfo(np.float32).max)  # f32::MAX, sssp.rs:12
-_NO_BIN = int(np.iinfo(np.int32).max)
-#: Bucket numbers clamp here before the int cast: f32::MAX / delta
-#: overflows int32.
-_BIN_CLAMP = float(np.float32(2**31 - 128))
+INF = np.float32(kernels.F32_MAX)  # f32::MAX, sssp.rs:12
 #: Frontier nodes relaxed per settle step (the reference claims 64-node
 #: batches per thread, sssp.rs:14).
 _FRONTIER_CAP = 8192
@@ -71,8 +80,9 @@ class DeltaSteppingConfig:
 
     ``engine``: "plan" (EdgeEngine Bellman-Ford), "xla" (delta-stepping
     with dense masks), "frontier" (delta-stepping over a compacted
-    frontier) or "auto" (the plan engine).  ``delta`` is the bucket width
-    of the delta-stepping engines; the distances do not depend on it.
+    frontier: near/far queues on the card) or "auto" ("frontier" on the
+    card, "plan" on the CPU).  ``delta`` is the bucket width of the
+    delta-stepping engines; the distances do not depend on it.
     """
 
     start_node: int
@@ -112,14 +122,19 @@ def delta_stepping(graph: DirectedCsrGraph,
                          f"{graph.node_count}")
     from graph_tpu_torch.parallel.mesh import _default_mesh
 
-    mesh = _default_mesh()
-    if mesh is not None and config.engine == "auto":
-        from graph_tpu_torch.parallel.sssp import sssp_meshed
+    engine = config.engine
+    if engine == "auto":
+        mesh = _default_mesh()
+        if mesh is not None:
+            from graph_tpu_torch.parallel.sssp import sssp_meshed
 
-        return sssp_meshed(graph, mesh, config)
-    if config.engine == "frontier":
+            return sssp_meshed(graph, mesh, config)
+        engine = _auto_engine(graph)
+    if engine == "frontier":
+        if graph.device.type == "cuda":
+            return _sssp_near_far(graph, config)
         return _sssp_frontier(graph, config)
-    if config.engine == "xla":
+    if engine == "xla":
         with profile.span("sssp.run") as sp:
             start = time.perf_counter()
             dist, steps, reads = _delta_stepping_device(
@@ -136,11 +151,64 @@ def delta_stepping(graph: DirectedCsrGraph,
     return _sssp_plan(graph, config)
 
 
-def _bucket_of(dist: torch.Tensor, delta: float) -> torch.Tensor:
-    """floor(dist / delta) as int32; unreached (f32::MAX) maps to
-    ``_NO_BIN``."""
-    q = torch.clamp(dist / delta, max=_BIN_CLAMP)
-    return torch.where(dist < float(INF), q.to(torch.int32), _NO_BIN)
+def _auto_engine(graph: DirectedCsrGraph) -> str:
+    """``"auto"``'s engine on one device: ``"frontier"`` (the near/far
+    queues) on the card where its queues can count the arcs, else
+    ``"plan"``."""
+    if graph.device.type == "cuda" and \
+            graph.edge_count < kernels.NEAR_FAR_MAX_ARCS:
+        return "frontier"
+    return "plan"
+
+
+#: Held while a graph's near/far state is looked up or built, so that
+#: threads whose first calls race share one state, and so its lock.
+_STATE_LOCK = threading.Lock()
+
+
+def _near_far_state(graph: DirectedCsrGraph) -> kernels.NearFar:
+    """The graph's near/far state over its out-CSR, cached per graph: one
+    state a graph, whichever thread builds it."""
+    csr = graph.csr_out
+    with _STATE_LOCK:
+        return engine_for(graph, "near_far", lambda: kernels.near_far_state(
+            csr.offsets, csr.targets, csr.values))
+
+
+def _sssp_near_far(graph: DirectedCsrGraph, config) -> SsspResult:
+    """Delta-stepping over the near/far queues of a :class:`NearFar`
+    state (``engine="frontier"`` on the card): one reset, then a loop over
+    buckets whose body is a settle loop of relax steps and one advance.
+    The steps work in place on the state and return their state, the two
+    loop flags, as they got it, so the device loop copies nothing.  The
+    distances are cloned out and the relaxed arcs read back once after
+    the loop; one run at a time holds the state's lock."""
+    st = _near_far_state(graph)
+    delta = float(np.float32(config.delta))
+
+    def relax(state):
+        kernels.sssp_frontier_relax(st, delta, state[0])
+        return state
+
+    def advance(state):
+        kernels.sssp_frontier_advance(st, delta, state[0], state[1])
+        return state
+
+    with st.lock, profile.span("sssp.run") as sp:
+        start = time.perf_counter()
+        kernels.sssp_frontier_reset(st, int(config.start_node))
+        run = device_while((While(relax, Flag(0)), advance),
+                           (st.flags[0], st.flags[1]), Flag(1),
+                           cache=engine_for(graph, "loops", dict),
+                           key=("near_far", delta))
+        dist = st.dist.clone()
+        relaxed = int(st.ctrl[kernels.RELAXED])  # the one read after
+        micros = int((time.perf_counter() - start) * 1e6)
+        steps = run.inner[0]
+        if sp:
+            sp.count(rounds=steps, buckets=run.iterations, relaxed=relaxed)
+    return SsspResult(distances=dist, micros=micros, ran_iterations=steps,
+                      host_reads=run.host_reads + 1)
 
 
 def _settle(dist: torch.Tensor, pending: torch.Tensor, delta: float,
@@ -162,7 +230,7 @@ def _settle(dist: torch.Tensor, pending: torch.Tensor, delta: float,
     delta = float(np.float32(delta))
 
     def in_bucket(dist, pending, curr_bin):
-        return pending & (_bucket_of(dist, delta) == curr_bin)
+        return pending & (kernels.bucket_of(dist, delta) == curr_bin)
 
     def settle_step(state):
         dist, pending, curr_bin, _, more = state
@@ -174,11 +242,11 @@ def _settle(dist: torch.Tensor, pending: torch.Tensor, delta: float,
     def next_bucket(state):
         dist, pending, _, _, _ = state
         # the next bucket: the least over the pending nodes
-        curr_bin = torch.where(pending, _bucket_of(dist, delta),
-                               _NO_BIN).min()
+        curr_bin = torch.where(pending, kernels.bucket_of(dist, delta),
+                               kernels.IMAX).min()
         return (dist, pending, curr_bin,
                 in_bucket(dist, pending, curr_bin).any(),
-                curr_bin != _NO_BIN)
+                curr_bin != kernels.IMAX)
 
     curr_bin = torch.zeros((), dtype=torch.int32, device=dist.device)
     state = (dist, pending, curr_bin,
@@ -292,7 +360,8 @@ def _frontier_adjacency(graph: DirectedCsrGraph):
 
 
 def _sssp_frontier(graph: DirectedCsrGraph, config) -> SsspResult:
-    """:func:`_sssp_frontier_device` over the graph's padded adjacency."""
+    """:func:`_sssp_frontier_device` over the graph's padded adjacency
+    (``engine="frontier"`` on the CPU)."""
     adj_t, adj_w = _frontier_adjacency(graph)
     with profile.span("sssp.run") as sp:
         start = time.perf_counter()

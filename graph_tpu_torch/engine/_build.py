@@ -43,6 +43,9 @@ SIGNATURES = {
     "jacobi_quantize": (_P, _P, _P, _I64, _I32, _P),
     "jacobi_update": (_P, _P, _P, _I64, _F32, _F32, _P, _P, _I32, _P),
     "tc_count": (_P, _P, _P, _I64, _P, _I64, _I64, _I64, _P, _P),
+    **{name: (_P,) * 10 + (_I64, _I64, _I64, _F32, _P) for name in (
+        "sssp_frontier_reset", "sssp_frontier_relax",
+        "sssp_frontier_advance")},
     "probe_row_gather": (_P, _P, _P, _I64, _I32, _P),
     "probe_lanemap": (_P, _P, _P, _I64, _I32, _P),
     "probe_window_gather": (_P, _P, _P, _I64, _I32, _I32, _P),
@@ -73,6 +76,9 @@ SOURCES = {
     "jacobi_quantize": "jacobi_tails",
     "jacobi_update": "jacobi_tails",
     "tc_count": "tc_count",
+    "sssp_frontier_reset": "sssp_frontier",
+    "sssp_frontier_relax": "sssp_frontier",
+    "sssp_frontier_advance": "sssp_frontier",
     "probe_row_gather": "k1_probes",
     "probe_lanemap": "k1_probes",
     "probe_window_gather": "k1_probes",

@@ -37,6 +37,14 @@ Triangle count's join is one kernel (``csrc/tc_count.cu``):
 neighbours' lists, over the heads :func:`tc_schedule` sorts into long
 ones (a block each) and short ones (a warp each).
 
+Delta-stepping's settle step on the card is one kernel over on-card
+near/far queues (``csrc/sssp_frontier.cu``): :func:`sssp_frontier_relax`
+relaxes the out-arcs of the current near queue's nodes, appending each
+node it lowers to the next near queue or the far pile, and
+:func:`sssp_frontier_advance` moves the next bucket's entries of the far
+pile into the near queue; :func:`sssp_frontier_reset` starts a run.  They
+work in place on a :class:`NearFar` state (:func:`near_far_state`).
+
 Each wrapper runs its plain PyTorch version for tensors on the CPU.  For
 CUDA tensors it checks device, dtype, shape and contiguity, launches its
 kernel on the current stream (building it at first use) and raises if
@@ -46,6 +54,9 @@ on the card.  ``LAUNCHES`` counts the kernel launches.
 
 from __future__ import annotations
 
+import contextlib
+import dataclasses
+import threading
 from typing import Optional
 
 import torch
@@ -73,7 +84,8 @@ K2_TILE = 1920
 #: one where it launches its kernel, and nowhere else.
 LAUNCHES = {"k1_gather": 0, "k1_gather_weighted": 0, "k2_reduce": 0,
             "k2_reduce_min": 0, "jacobi_quantize": 0, "jacobi_update": 0,
-            "tc_count": 0}
+            "tc_count": 0, "sssp_frontier_reset": 0,
+            "sssp_frontier_relax": 0, "sssp_frontier_advance": 0}
 #: The device function each wrapper launches once a call, as a pattern over
 #: mangled kernel names: a captured graph's kernel nodes are counted by it
 #: (:mod:`graph_tpu_torch.engine.loop`).
@@ -83,7 +95,10 @@ KERNEL_NODES = {"k1_gather": r"k1_gather_kernel",
                 "k2_reduce_min": r"k2_tile_kernel.*MinOp",
                 "jacobi_quantize": r"jacobi_quantize_kernel",
                 "jacobi_update": r"jacobi_update_kernel",
-                "tc_count": r"tc_count_kernel"}
+                "tc_count": r"tc_count_kernel",
+                "sssp_frontier_reset": r"sssp_reset_kernel",
+                "sssp_frontier_relax": r"sssp_relax_kernel",
+                "sssp_frontier_advance": r"sssp_advance_kernel"}
 #: Threads a block of the Jacobi tail kernels, the ``kThreads`` of
 #: ``csrc/jacobi_tails.cu``, and the most blocks a launch takes.
 JACOBI_THREADS = 256
@@ -97,6 +112,26 @@ TC_LONG = 64
 #: tile.
 TC_TILE = 1024
 TC_WARP_TILE = 64
+#: Arcs a tile of :func:`sssp_frontier_relax` (the ``kTile`` of
+#: ``csrc/sssp_frontier.cu``): a near queue records, for each tile of its
+#: arcs, the entry the tile's first arc belongs to.
+NEAR_FAR_TILE = 256
+#: The near-far queues count arcs in 32 bits: a graph takes the card path
+#: below this many arcs.
+NEAR_FAR_MAX_ARCS = (1 << 32) - NEAR_FAR_TILE
+#: The int64 words of a :class:`NearFar`'s ``ctrl`` (the ``Ctrl`` of
+#: ``csrc/sssp_frontier.cu``): the heads of near queues 0 and 1, each
+#: ``(entries << 32) | arcs``; the arcs relaxed; the near queue the next
+#: step reads; that step's number; the bucket; the far pile the steps
+#: append to; the counts of far piles 0 and 1; their least buckets; the
+#: kernels' last-block ticket (blocks finished, near entries appended).
+HEAD, RELAXED, CUR, STEP, BUCKET, FC, FAR_COUNT, FAR_MIN, TICKET = (
+    0, 2, 3, 4, 5, 6, 7, 9, 11)
+#: Bucket numbers clamp here before the int cast: f32::MAX / delta
+#: overflows int32.
+BIN_CLAMP = 2147483520.0  # f32(2**31 - 128)
+#: f32::MAX, an unreached node's distance.
+F32_MAX = 3.4028234663852886e38
 
 
 def reset_launches() -> None:
@@ -156,11 +191,31 @@ def _on_cpu(*tensors: torch.Tensor) -> bool:
     return all(t.device.type == "cpu" for t in tensors)
 
 
+#: Per thread, the launches of the capture it is making
+#: (:func:`captured_launches`), or none.
+_CAPTURED = threading.local()
+
+
+@contextlib.contextmanager
+def captured_launches():
+    """While the block runs, count this thread's launches apart from
+    ``LAUNCHES``, in the dict it yields (kernel -> launches): a capture's
+    launches record kernel nodes and run nothing, and another thread's
+    launches meanwhile still go to ``LAUNCHES``."""
+    outer = getattr(_CAPTURED, "counts", None)
+    counts = _CAPTURED.counts = dict.fromkeys(LAUNCHES, 0)
+    try:
+        yield counts
+    finally:
+        _CAPTURED.counts = outer
+
+
 def _launch(name: str, device: torch.device, *args) -> None:
     fn = _build.load(name)
     with torch.cuda.device(device):
         err = fn(*args, torch.cuda.current_stream(device).cuda_stream)
-    LAUNCHES[name] += 1
+    counts = getattr(_CAPTURED, "counts", None)
+    (LAUNCHES if counts is None else counts)[name] += 1
     if err != 0:
         raise RuntimeError(f"{name}: kernel launch failed with CUDA error {err}")
 
@@ -485,3 +540,245 @@ def tc_count(offsets: torch.Tensor, targets: torch.Tensor,
             short_heads.data_ptr(), short_heads.numel(), h0, h1,
             out.data_ptr())
     return out[0]
+
+
+@dataclasses.dataclass(frozen=True)
+class NearFar:
+    """The resident state of delta-stepping's near-far settle steps, which
+    :func:`sssp_frontier_reset`, :func:`sssp_frontier_relax` and
+    :func:`sssp_frontier_advance` read and write in place.
+
+    ``offsets`` (n+1,) int64, ``targets`` (m,) int32 and ``weights`` (m,)
+    f32 are the out-CSR.  ``dist`` (n,) f32 holds the distances
+    (f32::MAX unreached).  ``marks`` (2, n) int32: each node's stamp (the
+    step whose near queue holds it) and far mark (1 while it is in a far
+    pile).  ``queues`` (8, n) int32: for near queues 0 and 1 the nodes
+    (rows 0-1), their first arcs (rows 2-3) and their first arcs' places
+    among the queue's arcs (rows 4-5), these two as uint32 bits, then far
+    piles 0 and 1 (rows 6-7).  ``tiles`` (2, m / NEAR_FAR_TILE + 1) int32: for each tile
+    of a near queue's arcs, the entry of its first arc.  ``ctrl`` (16,)
+    int64: the words named by :data:`HEAD` to :data:`TICKET`.  ``flags``
+    (2,) int32: the settle loop's flag (the near queue is not empty) and
+    the bucket loop's (a bucket is left).  One run at a time holds
+    ``lock``.
+    """
+
+    offsets: torch.Tensor
+    targets: torch.Tensor
+    weights: torch.Tensor
+    dist: torch.Tensor
+    marks: torch.Tensor
+    queues: torch.Tensor
+    tiles: torch.Tensor
+    ctrl: torch.Tensor
+    flags: torch.Tensor
+    lock: threading.Lock = dataclasses.field(default_factory=threading.Lock)
+
+    @property
+    def n(self) -> int:
+        return self.dist.numel()
+
+
+def near_far_state(offsets: torch.Tensor, targets: torch.Tensor,
+                   weights: torch.Tensor) -> NearFar:
+    """A :class:`NearFar` over the out-CSR (offsets from 0, targets below
+    n, weights >= 0), on its device; offsets become int64, targets int32
+    and weights f32 where they are not already."""
+    n = offsets.numel() - 1
+    m = targets.numel()
+    if m >= NEAR_FAR_MAX_ARCS:
+        raise ValueError(f"the near-far queues count arcs in 32 bits: a "
+                         f"graph of {m} arcs needs fewer than "
+                         f"{NEAR_FAR_MAX_ARCS}")
+    if n >= 1 << 31:
+        raise ValueError(f"the near-far queues hold int32 node ids: n={n}")
+    device = offsets.device
+    i32 = dict(dtype=torch.int32, device=device)
+    return NearFar(
+        offsets=offsets.to(torch.int64).contiguous(),
+        targets=targets.to(torch.int32).contiguous(),
+        weights=weights.to(torch.float32).contiguous(),
+        dist=torch.empty(n, dtype=torch.float32, device=device),
+        marks=torch.empty((2, n), **i32),
+        queues=torch.empty((8, n), **i32),
+        tiles=torch.empty((2, m // NEAR_FAR_TILE + 1), **i32),
+        ctrl=torch.zeros(16, dtype=torch.int64, device=device),
+        flags=torch.zeros(2, **i32))
+
+
+def _launch_near_far(name: str, st: NearFar, settle, more, source: int = 0,
+                     delta: float = 1.0) -> None:
+    for field, dtype in (("offsets", torch.int64), ("targets", torch.int32),
+                         ("weights", torch.float32),
+                         ("dist", torch.float32)):
+        _check(field, getattr(st, field), dtype, st.dist.device)
+    _launch(name, st.dist.device, st.offsets.data_ptr(),
+            st.targets.data_ptr(), st.weights.data_ptr(), st.dist.data_ptr(),
+            st.marks.data_ptr(), st.queues.data_ptr(), st.tiles.data_ptr(),
+            st.ctrl.data_ptr(), settle.data_ptr(),
+            None if more is None else more.data_ptr(), st.n,
+            st.tiles.shape[1], int(source), float(delta))
+
+
+def bucket_of(dist: torch.Tensor, delta: float) -> torch.Tensor:
+    """floor(dist / delta) as int32 through an f32 division, clamped to
+    :data:`BIN_CLAMP` before the cast; f32::MAX is :data:`IMAX` (no
+    bucket: an unreached node's, an empty far pile's least): the
+    bucket of a distance in every delta-stepping schedule (the kernels'
+    ``bucket_of``)."""
+    q = torch.clamp(dist / delta, max=BIN_CLAMP)
+    return torch.where(dist < F32_MAX, q.to(torch.int32), IMAX)
+
+
+def _u32(x: torch.Tensor) -> torch.Tensor:
+    """int64 values below 2**32 as the int32 bits of their uint32."""
+    return torch.where(x >= 1 << 31, x - (1 << 32), x).to(torch.int32)
+
+
+def _near_append_plain(st: NearFar, q: int, nodes: torch.Tensor) -> None:
+    """Append ``nodes`` (int64, each with out-arcs) to near queue q: their
+    entries, first arcs and arc places after the queue's, the tiles whose
+    first arc falls among their arcs, and the queue's head."""
+    head = int(st.ctrl[HEAD + q])
+    count, arcs = head >> 32, head & 0xFFFFFFFF
+    k = nodes.numel()
+    if not k:
+        return
+    beg = st.offsets[nodes]
+    deg = st.offsets[nodes + 1] - beg
+    ends = arcs + torch.cumsum(deg, 0)
+    offs = ends - deg
+    rows = slice(count, count + k)
+    st.queues[q, rows] = nodes.to(torch.int32)
+    st.queues[2 + q, rows] = _u32(beg)
+    st.queues[4 + q, rows] = _u32(offs)
+    total = int(ends[-1])
+    first = -(-arcs // NEAR_FAR_TILE)
+    starts = torch.arange(first, -(-total // NEAR_FAR_TILE)) * NEAR_FAR_TILE
+    st.tiles[q, first:first + starts.numel()] = (
+        count + torch.searchsorted(offs, starts, right=True) - 1).to(
+            torch.int32)
+    st.ctrl[HEAD + q] = ((count + k) << 32) | total
+
+
+def sssp_frontier_reset_plain(st: NearFar, source: int) -> None:
+    """Plain version of :func:`sssp_frontier_reset`."""
+    st.dist.fill_(F32_MAX)
+    st.dist[source] = 0.0
+    st.marks[0].fill_(-1)
+    st.marks[1].zero_()
+    st.ctrl.zero_()
+    st.ctrl[FAR_MIN:FAR_MIN + 2] = IMAX
+    if int(st.offsets[source + 1] - st.offsets[source]):
+        _near_append_plain(st, 0, torch.tensor([source]))
+    st.flags.fill_(1)
+
+
+def sssp_frontier_relax_plain(st: NearFar, delta: float,
+                              settle: torch.Tensor) -> None:
+    """Plain version of :func:`sssp_frontier_relax`, in one of the orders
+    the kernel's threads may meet in: every candidate ``dist[v] + w`` of the
+    step read first, then the least candidate of each target applied."""
+    c = st.ctrl
+    cur, step, b, fc = (int(c[k]) for k in (CUR, STEP, BUCKET, FC))
+    nxt = cur ^ 1
+    head = int(c[HEAD + cur])
+    count, arcs = head >> 32, head & 0xFFFFFFFF
+    nodes = st.queues[cur, :count].long()
+    beg = st.queues[2 + cur, :count].long() & 0xFFFFFFFF
+    off = st.queues[4 + cur, :count].long() & 0xFFFFFFFF
+    deg = torch.diff(torch.cat([off, torch.tensor([arcs])]))
+    a = (torch.repeat_interleave(beg - off, deg)
+         + torch.arange(arcs, dtype=torch.int64))
+    t = st.targets[a].long()
+    cand = st.dist[torch.repeat_interleave(nodes, deg)] + st.weights[a]
+    t, inv = torch.unique(t, return_inverse=True)
+    best = torch.full((t.numel(),), F32_MAX).scatter_reduce(
+        0, inv, cand, "amin")
+    low = best < st.dist[t]
+    t, best = t[low], best[low]
+    st.dist[t] = best
+    has_arcs = st.offsets[t + 1] > st.offsets[t]
+    t, best = t[has_arcs], best[has_arcs]
+    tb = bucket_of(best, delta)
+    near = tb <= b
+    st.marks[0, t[near]] = step + 1
+    _near_append_plain(st, nxt, t[near])
+    far, far_b = t[~near], tb[~near]
+    if far.numel():
+        c[FAR_MIN + fc] = min(int(c[FAR_MIN + fc]), int(far_b.min()))
+        new = far[st.marks[1, far] == 0]
+        st.marks[1, new] = 1
+        k = int(c[FAR_COUNT + fc])
+        st.queues[6 + fc, k:k + new.numel()] = new.to(torch.int32)
+        c[FAR_COUNT + fc] = k + new.numel()
+    c[HEAD + cur] = 0
+    c[CUR] = nxt
+    c[STEP] = step + 1
+    c[RELAXED] += arcs
+    settle.fill_(int(c[HEAD + nxt]) >> 32 != 0)
+
+
+def sssp_frontier_advance_plain(st: NearFar, delta: float,
+                                settle: torch.Tensor,
+                                more: torch.Tensor) -> None:
+    """Plain version of :func:`sssp_frontier_advance`."""
+    c = st.ctrl
+    fc, cur = int(c[FC]), int(c[CUR])
+    nf = fc ^ 1
+    nxt_bin, count = int(c[FAR_MIN + fc]), int(c[FAR_COUNT + fc])
+    v = st.queues[6 + fc, :count].long()
+    bb = bucket_of(st.dist[v], delta)
+    keep = bb > nxt_bin
+    st.marks[1, v[~keep]] = 0
+    _near_append_plain(st, cur, v[bb == nxt_bin])
+    kept = v[keep]
+    if kept.numel():
+        k = int(c[FAR_COUNT + nf])
+        st.queues[6 + nf, k:k + kept.numel()] = kept.to(torch.int32)
+        c[FAR_COUNT + nf] = k + kept.numel()
+        c[FAR_MIN + nf] = min(int(c[FAR_MIN + nf]), int(bb[keep].min()))
+    c[FAR_COUNT + fc] = 0
+    c[FAR_MIN + fc] = IMAX
+    c[FC] = nf
+    if nxt_bin != IMAX:
+        c[BUCKET] = nxt_bin
+    settle.fill_(int(c[HEAD + cur]) >> 32 != 0)
+    more.fill_(nxt_bin != IMAX)
+
+
+def sssp_frontier_reset(st: NearFar, source: int) -> None:
+    """Start a run from ``source``: every distance f32::MAX but the
+    source's 0, stamps and far marks cleared, the source alone in near
+    queue 0 (if it has out-arcs), both flags 1."""
+    if _on_cpu(st.dist):
+        return sssp_frontier_reset_plain(st, source)
+    _launch_near_far("sssp_frontier_reset", st, st.flags[0], st.flags[1],
+                     source=source)
+
+
+def sssp_frontier_relax(st: NearFar, delta: float,
+                        settle: torch.Tensor) -> None:
+    """One settle step: relax every out-arc of the nodes in the current
+    near queue; append each target it lowers (and that has out-arcs) to
+    the next near queue if its new distance lies in the current bucket
+    (``floor(d / delta)`` in f32), else to the far pile; swap the queues,
+    add the step's arcs to ``ctrl[RELAXED]`` and set ``settle`` (one
+    int32) to whether the next near queue holds a node.  On the card the
+    distances are lowered by atomics, so which step lowers which node
+    first may differ from run to run; the distances a run ends with do
+    not."""
+    if _on_cpu(st.dist):
+        return sssp_frontier_relax_plain(st, delta, settle)
+    _launch_near_far("sssp_frontier_relax", st, settle, None, delta=delta)
+
+
+def sssp_frontier_advance(st: NearFar, delta: float, settle: torch.Tensor,
+                          more: torch.Tensor) -> None:
+    """The next bucket: move the far pile's entries of its least bucket
+    into the (empty) near queue, drop the entries settled in an earlier
+    bucket, keep the rest; set ``settle`` to whether the near queue holds
+    a node and ``more`` to whether a bucket was found."""
+    if _on_cpu(st.dist):
+        return sssp_frontier_advance_plain(st, delta, settle, more)
+    _launch_near_far("sssp_frontier_advance", st, settle, more, delta=delta)

@@ -49,7 +49,9 @@ happens once, at capture.  :func:`device_while` takes those counts as the
 per-body launches, holds them against the kernel nodes of each captured
 graph (``kernels.KERNEL_NODES``), and, after each run, adds to
 ``graph_tpu_torch.engine.kernels.LAUNCHES`` the per-body counts times the
-bodies the device reports; capture itself counts nothing.
+bodies the device reports; capture itself counts nothing, and counts its
+own thread's launches apart (``kernels.captured_launches``), so another
+thread's launches meanwhile neither enter a capture's counts nor are lost.
 
 While :func:`graph_tpu_torch.profile.on`, a run is a ``loop.run`` span
 with counters ``bodies`` (each loop's count, outer first), ``launches``
@@ -459,11 +461,10 @@ class DeviceLoop:
         graph's kernel nodes; ``runs`` maps loop ``i``'s bodies to the
         piece's.  A capture that fails (a host read in the body) raises,
         with the caller's stream current again."""
-        before = dict(kernels.LAUNCHES)
         graph = torch.cuda.CUDAGraph(keep_graph=True)
         stream = torch.cuda.Stream(self.device)
         stream.wait_stream(torch.cuda.current_stream(self.device))
-        try:
+        with kernels.captured_launches() as launched:
             with torch.cuda.stream(stream):
                 graph.capture_begin(pool=self.pool,
                                     capture_error_mode="thread_local")
@@ -476,10 +477,6 @@ class DeviceLoop:
                         pass
                     raise
                 graph.capture_end()
-        finally:
-            launched = {k: kernels.LAUNCHES[k] - before.get(k, 0)
-                        for k in kernels.LAUNCHES}
-            kernels.LAUNCHES.update(before)
         torch.cuda.current_stream(self.device).wait_stream(stream)
         self.pool = graph.pool()
         self.graphs.append(graph)

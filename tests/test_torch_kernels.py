@@ -657,7 +657,11 @@ LOOP_KERNELS = {"pagerank_tol": ("k1_gather", "k2_reduce", "jacobi_quantize",
                 "pagerank_tol0": ("k1_gather", "k2_reduce", "jacobi_quantize",
                                   "jacobi_update"),
                 "wcc_plan": ("k1_gather", "k2_reduce_min"),
-                "sssp_plan": ("k1_gather_weighted", "k2_reduce_min")}
+                "sssp_plan": ("k1_gather_weighted", "k2_reduce_min"),
+                "sssp_frontier": ("sssp_frontier_relax",)}
+#: The paths whose settle steps meet in an order of the card's threads:
+#: the same distances as the host loop, not always the same steps.
+LOOP_ANY_ORDER = {"sssp_frontier"}
 
 
 def _result_of(res):
@@ -675,8 +679,10 @@ def test_device_loop_bit_equal_to_host_loop_on_card(cuda_device, path,
                                                     monkeypatch):
     """Each driver's device loop against its host loop on the card, a
     one-step body on two sets of buffers (``pair``) or on one: the same
-    bits, the same iterations, one host read, and K1 and K2 launched once
-    an iteration; a second run (from the cache) the same again."""
+    bits, the same iterations (the near/far queues: at least one), one
+    host read (the near/far queues: and the relaxed arcs' after it), and
+    K1 and K2 (the near/far relax kernel) launched once an iteration; a
+    second run (from the cache) the same again."""
     import graph_tpu_torch as gtt
     from graph_tpu_torch.engine import loop
 
@@ -697,10 +703,13 @@ def test_device_loop_bit_equal_to_host_loop_on_card(cuda_device, path,
     with monkeypatch.context() as mp:
         _host_loops(mp)
         want = run(gtt, g, start)
+    any_order = path in LOOP_ANY_ORDER
     for res in (first, got):
         assert _bits_equal(_result_of(res), _result_of(want))
-        assert res.ran_iterations == want.ran_iterations >= 1
-        assert res.host_reads == 1
+        assert res.ran_iterations >= 1 and want.ran_iterations >= 1
+        if not any_order:
+            assert res.ran_iterations == want.ran_iterations
+        assert res.host_reads == 1 + any_order
     assert want.host_reads >= 1
     for name in LOOP_KERNELS.get(path, ()):
         assert launches[name] == got.ran_iterations, (name, launches)
@@ -728,14 +737,14 @@ def test_device_loop_new_inputs_and_zero_iterations_on_card(cuda_device,
     cfgs.append({"max_iterations": 50, "tolerance": 1e-5})
     runs = []
     for start in (0, 2080):
-        runs.append(gtt.delta_stepping(g, gtt.DeltaSteppingConfig(start,
-                                                                   2.0)))
+        runs.append(gtt.delta_stepping(g, gtt.DeltaSteppingConfig(
+            start, 2.0, engine="plan")))
     for cfg in cfgs:
         runs.append(gtt.page_rank(g, gtt.PageRankConfig(**cfg)))
     with monkeypatch.context() as mp:
         _host_loops(mp)
-        want = [gtt.delta_stepping(g, gtt.DeltaSteppingConfig(s, 2.0))
-                for s in (0, 2080)]
+        want = [gtt.delta_stepping(g, gtt.DeltaSteppingConfig(
+            s, 2.0, engine="plan")) for s in (0, 2080)]
         want += [gtt.page_rank(g, gtt.PageRankConfig(**cfg)) for cfg in cfgs]
     for got, ref in zip(runs, want):
         assert _bits_equal(_result_of(got), _result_of(ref))
@@ -808,8 +817,8 @@ def test_device_loop_shared_by_two_threads_on_card(cuda_device, pair,
     starts = (0, 2080)
     with monkeypatch.context() as mp:
         _host_loops(mp)
-        want = {s: gtt.delta_stepping(g, gtt.DeltaSteppingConfig(s, 2.0))
-                for s in starts}
+        want = {s: gtt.delta_stepping(g, gtt.DeltaSteppingConfig(
+            s, 2.0, engine="plan")) for s in starts}
     got = {s: [] for s in starts}
     failed = []
     gate = threading.Barrier(len(starts))
@@ -820,7 +829,7 @@ def test_device_loop_shared_by_two_threads_on_card(cuda_device, pair,
                 gate.wait()
                 for _ in range(20):
                     got[s].append(gtt.delta_stepping(
-                        g, gtt.DeltaSteppingConfig(s, 2.0)))
+                        g, gtt.DeltaSteppingConfig(s, 2.0, engine="plan")))
                 stream.synchronize()
         except BaseException as e:  # reported below
             failed.append(e)
@@ -971,3 +980,229 @@ def test_page_rank_plan_bit_equal_to_the_op_chain_body_on_card(cuda_device,
     assert _bits_equal(got.scores, eng.to_public(scores))
     assert got.ran_iterations == it >= 1
     assert abs(got.error - err) <= 1e-6
+
+
+# Delta-stepping's settle step on the near/far queues
+# (csrc/sssp_frontier.cu), the card's "frontier" engine and "auto".
+
+def _kron_graph(scale, edgefactor, seed, device):
+    """A Graph500 Kronecker graph (weights uniform in [0, 1)) and the node
+    of largest out-degree."""
+    import graph_tpu_torch as gtt
+    from benchmark.generators import graph500_kronecker
+
+    gen = torch.Generator()
+    gen.manual_seed(seed)
+    d = graph500_kronecker.make(
+        {"scale": scale, "edgefactor": edgefactor, "A": 0.57, "B": 0.19,
+         "C": 0.19, "weights": {"low": 0.0, "high": 1.0}}, gen)
+    g = gtt.build_directed(d.src, d.dst, d.weights, node_count=d.n,
+                           device=device)
+    return g, int(torch.bincount(d.src).argmax())
+
+
+def _rgg_graph(scale, device):
+    """DIMACS10's random geometric graph at 2**scale points (the rgg
+    cell's definition; other components unreached), a source, and delta
+    one radius in the weights' units."""
+    import json
+    from pathlib import Path
+
+    import graph_tpu_torch as gtt
+    from benchmark.generators import rgg
+
+    conf = json.loads((Path(__file__).resolve().parents[1] / "benchmark"
+                       / "configs" / "dimacs10-rgg-s22.json").read_text())
+    conf["n"] = 1 << scale
+    gen = torch.Generator()
+    gen.manual_seed(2**33 + scale)
+    d = rgg.make(conf, gen)
+    g = gtt.build_directed(d.src, d.dst, d.weights, node_count=d.n,
+                           device=device)
+    gen.manual_seed(11)
+    return g, rgg.sources(d, 1, gen)[0], float(round(rgg.radius(conf) * 1e6))
+
+
+def _near_far_case(name, device):
+    """(graph, start, delta) of a case."""
+    import graph_tpu_torch as gtt
+
+    graph, delta = name.rsplit("@", 1)
+    if graph == "golden":
+        e = np.array([(0, 1, 4.0), (0, 2, 2.0), (1, 2, 5.0), (1, 3, 10.0),
+                      (2, 4, 3.0), (3, 5, 11.0), (4, 3, 4.0)])
+        g = gtt.build_directed(e[:, 0].astype(np.int64),
+                               e[:, 1].astype(np.int64),
+                               e[:, 2].astype(np.float32), node_count=6,
+                               device=device)
+        start = 0
+    elif graph == "grid64":
+        g, start = _loop_graphs(device)["grid64"]
+    elif graph == "rmat10":
+        from graph_tpu_torch.generate import host_rmat
+
+        src, dst = host_rmat(10, seed=5)
+        w = (np.random.default_rng(3).random(src.size) * 4).astype(
+            np.float32)
+        g = gtt.build_directed(src, dst, w, node_count=1 << 10,
+                               device=device)
+        start = int(np.bincount(src).argmax())
+    elif graph.startswith("rgg"):
+        g, start, radius = _rgg_graph(int(graph[3:]), device)
+        return g, start, radius
+    elif graph == "kron14_hub":  # its hub has over 10^4 out-arcs
+        g, start = _kron_graph(14, 40, 7, device)
+    else:  # zero_weights: a Kronecker graph, a third of its arcs 0
+        g0, start = _kron_graph(12, 16, 9, device)
+        w = g0.csr_out.values.clone()
+        w[::3] = 0.0
+        src = torch.repeat_interleave(
+            torch.arange(g0.node_count, device=device),
+            g0.out_degrees())
+        g = gtt.build_directed(src, g0.csr_out.targets, w,
+                               node_count=g0.node_count, device=device)
+    return g, start, float(delta)
+
+
+NEAR_FAR_CASES = ["golden@3.0", "golden@0.25", "grid64@3.0", "grid64@0.25",
+                  "rmat10@3.0", "rmat10@0.25", "rgg10@r", "rgg12@r",
+                  "rgg14@r", "kron14_hub@3.0", "kron14_hub@0.05",
+                  "zero_weights@0.5", "rmat10@0.002", "rmat10@1e9"]
+
+
+@pytest.mark.requires_cuda
+@pytest.mark.parametrize("case", NEAR_FAR_CASES)
+def test_near_far_bit_equal_to_plan_on_card(cuda_device, case):
+    """``auto`` on the card (the near/far queues) against the plan engine
+    and against the kernels' plain versions on the CPU (the same schedule,
+    ``sssp._sssp_near_far`` on a CPU copy of the graph; the CPU tests hold
+    these to ``graph_tpu`` on the same cases), bit for bit, from the
+    captured loop and from the cache with another start; ``relaxed``
+    between the arcs of the reached nodes and eight times them; one relax
+    launch a settle step and one advance a bucket, each one kernel node of
+    the captured loop; hundreds of buckets at a small delta, one at a
+    large one."""
+    import graph_tpu_torch as gtt
+    from graph_tpu_torch import profile
+    from graph_tpu_torch.algos import sssp
+    from graph_tpu_torch.engine import loop
+    from graph_tpu_torch.engine.engine import engine_for
+
+    g, start, delta = _near_far_case(case, cuda_device)
+    host, _, _ = _near_far_case(case, "cpu")
+    assert sssp._auto_engine(g) == "frontier"
+    out_deg = g.out_degrees()
+    for s in (start, int(out_deg.argmax())):
+        want = gtt.delta_stepping(g, gtt.DeltaSteppingConfig(
+            s, delta, engine="plan"))
+        plain = sssp._sssp_near_far(host, gtt.DeltaSteppingConfig(s, delta))
+        assert _bits_equal(plain.distances, want.distances.cpu()), (case, s)
+        LAUNCHES.update({k: 0 for k in LAUNCHES})
+        profile.spans(clear=True)
+        with profile.record():
+            got = gtt.delta_stepping(g, gtt.DeltaSteppingConfig(s, delta))
+        run, = [sp for sp in profile.spans(clear=True)
+                if sp["name"] == "sssp.run"]
+        c = run["counters"]
+        assert _bits_equal(got.distances, want.distances), (case, s)
+        assert c["rounds"] == got.ran_iterations >= 1
+        assert c["buckets"] >= 1 and got.host_reads == 2
+        reached = got.distances < float(sssp.INF)
+        arcs = int(out_deg[reached].sum())
+        assert arcs <= c["relaxed"] <= 8 * max(arcs, 1), (c, arcs)
+        assert LAUNCHES["sssp_frontier_reset"] == 1
+        assert LAUNCHES["sssp_frontier_relax"] == c["rounds"]
+        assert LAUNCHES["sssp_frontier_advance"] == c["buckets"]
+        if delta >= 1e9:
+            assert c["buckets"] == 1
+        if delta <= 0.002:
+            assert c["buckets"] >= 100
+    dl = engine_for(g, "loops", dict)[("near_far",
+                                       float(np.float32(delta)))]
+    names = [n for graph in dl.graphs for n in loop.kernel_nodes(graph)]
+    assert sum("sssp_relax_kernel" in n for n in names) == 1
+    assert sum("sssp_advance_kernel" in n for n in names) == 1
+
+
+@pytest.mark.requires_cuda
+@pytest.mark.parametrize("graphs", [1, 2])
+def test_near_far_shared_by_two_threads_on_card(cuda_device, graphs):
+    """Two threads run the near/far queues from two start nodes at once,
+    one on a stream of its own, on one graph (they share its state and
+    cached loop, one run at a time, and both first calls race to build
+    them) or on a graph each (one thread's reset launches while the other
+    captures its loop); every run gives its own start node's plan
+    distances, with its relaxed arcs read back."""
+    import threading
+
+    import graph_tpu_torch as gtt
+
+    g, _ = _loop_graphs(cuda_device)["grid64"]
+    starts = (0, 2080)
+    graph_of = {0: g, 2080: g if graphs == 1 else _loop_graphs(
+        cuda_device)["grid64"][0]}
+    want = {s: gtt.delta_stepping(g, gtt.DeltaSteppingConfig(
+        s, 2.0, engine="plan")) for s in starts}
+    got = {s: [] for s in starts}
+    failed = []
+    gate = threading.Barrier(len(starts))
+
+    def work(s, stream):
+        try:
+            with torch.cuda.stream(stream):
+                gate.wait()
+                for _ in range(20):
+                    got[s].append(gtt.delta_stepping(
+                        graph_of[s], gtt.DeltaSteppingConfig(s, 2.0)))
+                stream.synchronize()
+        except BaseException as e:  # reported below
+            failed.append(e)
+
+    threads = [threading.Thread(target=work, args=(s, stream)) for s, stream
+               in zip(starts, (torch.cuda.current_stream(cuda_device),
+                               torch.cuda.Stream(cuda_device)))]
+    for t in threads:
+        t.start()
+    for t in threads:
+        t.join()
+    assert not failed, failed
+    for s in starts:
+        assert len(got[s]) == 20
+        for res in got[s]:
+            assert _bits_equal(res.distances, want[s].distances), s
+            assert res.ran_iterations >= 1 and res.host_reads == 2
+
+
+@pytest.mark.requires_cuda
+def test_near_far_engine_and_errors_on_card(cuda_device):
+    """``engine="frontier"`` on the card runs the near/far queues (no
+    padded adjacency: a graph past its 2**31 slots runs); a source
+    without out-arcs reaches only itself; the kernels' state refuses what
+    its 32-bit counts cannot hold."""
+    import graph_tpu_torch as gtt
+    from graph_tpu_torch.algos import sssp
+    from graph_tpu_torch.engine import kernels
+
+    g, start = _kron_graph(12, 16, 9, cuda_device)
+    cfg = gtt.DeltaSteppingConfig(start, 0.5, engine="frontier")
+    plan = gtt.delta_stepping(g, gtt.DeltaSteppingConfig(start, 0.5,
+                                                         engine="plan"))
+    real = sssp._max_out_degree
+    try:
+        sssp._max_out_degree = lambda graph: 1 << 30
+        got = gtt.delta_stepping(g, cfg)
+    finally:
+        sssp._max_out_degree = real
+    assert _bits_equal(got.distances, plan.distances)
+    sink = int(torch.nonzero(g.out_degrees() == 0)[0])
+    alone = gtt.delta_stepping(g, gtt.DeltaSteppingConfig(sink, 0.5))
+    d = alone.distances_np()
+    assert d[sink] == 0.0 and (d[np.arange(d.size) != sink]
+                               == np.finfo(np.float32).max).all()
+    assert alone.ran_iterations == 1
+    one = torch.zeros(1, dtype=torch.int32, device=cuda_device)
+    with pytest.raises(ValueError, match="32 bits"):
+        kernels.near_far_state(  # 2**32 arcs of one stored value
+            torch.zeros(2, dtype=torch.int64, device=cuda_device),
+            one.expand(kernels.NEAR_FAR_MAX_ARCS),
+            one.float().expand(kernels.NEAR_FAR_MAX_ARCS))

@@ -26,7 +26,7 @@ from graph_tpu.algos.wcc import WccConfig as JaxWccConfig
 from graph_tpu.algos.wcc import wcc as jax_wcc
 from graph_tpu.graph.build import build_directed as jax_build_directed
 from graph_tpu_torch.algos import sssp
-from graph_tpu_torch.engine import loop
+from graph_tpu_torch.engine import kernels, loop
 from graph_tpu_torch.engine.loop import (
     DeviceLoop, Flag, Residual, While, device_while, host_while)
 from graph_tpu_torch.generate import host_rmat
@@ -178,6 +178,54 @@ def test_two_buffers_from_the_state_size(monkeypatch):
     assert loop.two_buffers(_collatz_body, (torch.zeros(1), True))
 
 
+def test_a_capture_counts_its_own_thread_launches_apart(monkeypatch):
+    """A capture's kernel launches (``kernels.captured_launches``, which
+    the device loop holds against the captured graph's kernel nodes) are
+    its own thread's: another thread's launches meanwhile go to
+    ``kernels.LAUNCHES`` and not to the capture's counts.  The launches
+    themselves are stubbed, so no card is needed."""
+    import contextlib
+    import threading
+    import types
+
+    from graph_tpu_torch.engine import _build
+
+    monkeypatch.setattr(_build, "load", lambda name: lambda *args: 0)
+    monkeypatch.setattr(torch.cuda, "device",
+                        lambda device: contextlib.nullcontext())
+    monkeypatch.setattr(torch.cuda, "current_stream",
+                        lambda device: types.SimpleNamespace(cuda_stream=0))
+    monkeypatch.setattr(kernels, "LAUNCHES", dict.fromkeys(kernels.LAUNCHES,
+                                                           0))
+    inside, outside = threading.Barrier(2), threading.Barrier(2)
+
+    def capture():
+        with kernels.captured_launches() as counts:
+            kernels._launch("sssp_frontier_relax", "cpu")
+            inside.wait()   # the other thread launches now
+            outside.wait()
+        captured.update(counts)
+
+    def eager():
+        inside.wait()
+        kernels._launch("sssp_frontier_reset", "cpu")
+        kernels._launch("sssp_frontier_relax", "cpu")
+        outside.wait()
+
+    captured = {}
+    threads = [threading.Thread(target=f) for f in (capture, eager)]
+    for t in threads:
+        t.start()
+    for t in threads:
+        t.join()
+    assert {k: v for k, v in captured.items() if v} == {
+        "sssp_frontier_relax": 1}
+    assert {k: v for k, v in kernels.LAUNCHES.items() if v} == {
+        "sssp_frontier_reset": 1, "sssp_frontier_relax": 1}
+    kernels._launch("tc_count", "cpu")  # no capture: counted as ever
+    assert kernels.LAUNCHES["tc_count"] == 1
+
+
 def test_drivers_on_cuda_raise_without_a_card(monkeypatch):
     """A driver asked for the card on a machine without one raises (torch
     built for the CPU only asserts); it does not run on the CPU."""
@@ -254,15 +302,15 @@ def _settle_steps(dist, pending, delta, step):
     values: its settle steps and distances."""
     delta = float(np.float32(delta))
     curr, steps = 0, 0
-    while curr != sssp._NO_BIN:
+    while curr != kernels.IMAX:
         while True:
-            frontier = pending & (sssp._bucket_of(dist, delta) == curr)
+            frontier = pending & (kernels.bucket_of(dist, delta) == curr)
             if not bool(frontier.any()):
                 break
             dist, pending = step(dist, pending, frontier)
             steps += 1
-        curr = int(torch.where(pending, sssp._bucket_of(dist, delta),
-                               sssp._NO_BIN).min())
+        curr = int(torch.where(pending, kernels.bucket_of(dist, delta),
+                               kernels.IMAX).min())
     return dist, steps
 
 

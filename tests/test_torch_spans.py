@@ -412,7 +412,7 @@ def test_loop_run_device_time_and_bodies_on_card(cuda_device, algo):
     call = {"page_rank": lambda: gtt.page_rank(g),
             "wcc": lambda: gtt.wcc(g),
             "sssp": lambda: gtt.delta_stepping(
-                g, gtt.DeltaSteppingConfig(0, 3.0))}[algo]
+                g, gtt.DeltaSteppingConfig(0, 3.0, engine="plan"))}[algo]
     with profile.record():
         first = call()   # captured
         second = call()  # from the cache
@@ -431,6 +431,35 @@ def test_loop_run_device_time_and_bodies_on_card(cuda_device, algo):
         if algo == "sssp":  # every arc slot relaxed each round
             want["relaxed"] = res.ran_iterations * g.edge_count
         assert driver["counters"] == want
+
+
+@pytest.mark.requires_cuda
+def test_near_far_run_device_time_and_bodies_on_card(cuda_device):
+    """SSSP's near/far queues (``auto`` on the card): a loop over buckets
+    whose body is the settle loop, so the ``loop.run`` span counts
+    [buckets, settle steps]; the driver's counters are the steps, the
+    buckets and the arcs relaxed, read back after the loop."""
+    g = _rmat(cuda_device, weighted=True)
+    start = int(g.out_degrees().argmax())
+    with profile.record():
+        first = gtt.delta_stepping(g, gtt.DeltaSteppingConfig(start, 3.0))
+        second = gtt.delta_stepping(g, gtt.DeltaSteppingConfig(start, 3.0))
+    spans = profile.spans()
+    runs = _named(spans, "loop.run")
+    assert [s["counters"]["cached"] for s in runs] == [False, True]
+    assert len(_named(spans, "loop.capture")) == 1
+    drivers = _named(spans, "sssp.run")
+    reached = first.distances < float(np.finfo(np.float32).max)
+    arcs = int(g.out_degrees()[reached].sum())
+    for res, run, driver in zip((first, second), runs, drivers):
+        c, d = run["counters"], driver["counters"]
+        assert c["bodies"] == [d["buckets"], res.ran_iterations]
+        assert c["host_reads"] == 1 and res.host_reads == 2
+        assert 0 < c["device_ms"] <= (run["end_us"] - run["start_us"]) * 1e-3
+        assert run["parent"] == driver["id"]
+        assert set(d) == {"rounds", "buckets", "relaxed"}
+        assert d["rounds"] == res.ran_iterations >= d["buckets"] >= 1
+        assert arcs <= d["relaxed"] <= 8 * arcs
 
 
 @pytest.mark.requires_cuda
@@ -478,7 +507,8 @@ def test_page_rank_loop_launches_match_its_kernel_nodes_on_card(
                 for name, pattern in kernels.KERNEL_NODES.items()} == {
             "k1_gather": 1, "k1_gather_weighted": 0, "k2_reduce": 1,
             "k2_reduce_min": 0, "jacobi_quantize": 1, "jacobi_update": 1,
-            "tc_count": 0}
+            "tc_count": 0, "sssp_frontier_reset": 0,
+            "sssp_frontier_relax": 0, "sssp_frontier_advance": 0}
     bodies = res.ran_iterations
     assert bodies == 20
     assert run["counters"]["launches"] == {
