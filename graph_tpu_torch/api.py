@@ -11,8 +11,10 @@ Graphs live on ``device``: every constructor and ``load`` takes
 run on the CPU.  Algorithms run where the graph lies.
 
 Every algorithm call is an ``api.<method>`` span and every copy of an
-answer to the host a ``result.to_host`` span (counter ``bytes``), and
-``from_numpy`` a ``graph.build`` span (:mod:`graph_tpu_torch.profile`).
+answer to the host a ``result.to_host`` span (counter ``bytes``),
+``from_numpy`` a ``graph.build`` span, and ``load`` an ``api.load`` span
+with counters ``bytes`` (the file's size), ``edges`` and ``nodes`` (the
+loaded graph's) (:mod:`graph_tpu_torch.profile`).
 
 Zero-copy semantics: neighbor queries return read-only numpy *views* into
 one cached host copy of each CSR's offsets and targets (the analog of
@@ -44,6 +46,7 @@ reference, crates/builder/src/lib.rs:44-251):
 
 from __future__ import annotations
 
+import os
 import time
 
 import numpy as np
@@ -146,6 +149,21 @@ class SsspResult:
         return self._distances
 
 
+def _load(build, path, layout, file_format, device):
+    """``build`` over the edges of the file at ``path``, in an ``api.load``
+    span; returns the graph and the load's microseconds."""
+    device = resolve_device(device)
+    with profile.span("api.load") as sp:
+        t0 = time.perf_counter()
+        src, dst, values, n = _load_coo(path, file_format)
+        g = build(src, dst, values, node_count=n, layout=layout,
+                  id_dtype=ID_DTYPE, device=device)
+        if sp:
+            sp.count(bytes=os.path.getsize(path), edges=g.edge_count,
+                     nodes=g.node_count)
+        return g, int((time.perf_counter() - t0) * 1e6)
+
+
 def _load_coo(path, file_format, weighted=False):
     if file_format == FileFormat.Graph500:
         from graph_tpu_torch.io.graph500 import read_graph500
@@ -217,12 +235,8 @@ class Graph(_GraphBase):
     @staticmethod
     def load(path: str, layout=Layout.Unsorted,
              file_format=FileFormat.Graph500, device=None) -> "Graph":
-        device = resolve_device(device)
-        t0 = time.perf_counter()
-        src, dst, values, n = _load_coo(path, file_format)
-        g = build_undirected(src, dst, values, node_count=n, layout=layout,
-                             id_dtype=ID_DTYPE, device=device)
-        return Graph(g, load_micros=int((time.perf_counter() - t0) * 1e6))
+        return Graph(*_load(build_undirected, path, layout, file_format,
+                            device))
 
     @staticmethod
     def from_numpy(arr: np.ndarray, layout=Layout.Unsorted,
@@ -274,12 +288,8 @@ class DiGraph(_GraphBase):
     @staticmethod
     def load(path: str, layout=Layout.Unsorted,
              file_format=FileFormat.Graph500, device=None) -> "DiGraph":
-        device = resolve_device(device)
-        t0 = time.perf_counter()
-        src, dst, values, n = _load_coo(path, file_format)
-        g = build_directed(src, dst, values, node_count=n, layout=layout,
-                           id_dtype=ID_DTYPE, device=device)
-        return DiGraph(g, load_micros=int((time.perf_counter() - t0) * 1e6))
+        return DiGraph(*_load(build_directed, path, layout, file_format,
+                              device))
 
     @staticmethod
     def from_numpy(arr: np.ndarray, layout=Layout.Unsorted, device=None, *,

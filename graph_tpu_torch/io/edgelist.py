@@ -9,15 +9,23 @@ Parsing is host work: the native C++ chunked parser
 (:mod:`graph_tpu_torch.native.edge_list_parser`) is the fast path and
 pandas' C csv engine the fallback when the parser cannot be built;
 ``edge_list_parser.load_error()`` then says why.
+
+Each parse is an ``io.parse`` span (:mod:`graph_tpu_torch.profile`)
+with counters ``bytes`` (the file's size), ``edges`` (the lines
+parsed), ``threads`` (the threads the parser split the file over) and
+``native`` (1 for the native parser, 0 for pandas).
 """
 
 from __future__ import annotations
 
+import os
 from typing import Optional, Tuple
 
 import numpy as np
 
+from graph_tpu_torch import profile
 from graph_tpu_torch.native import edge_list_parser
+
 
 def _parse_pandas(path: str, weighted: bool):
     import pandas as pd
@@ -49,10 +57,16 @@ def read_edge_list(
     """
     if weighted is None:
         weighted = str(path).endswith(".wel")
-    parsed = edge_list_parser.parse(path, weighted)
-    if parsed is not None:
+    with profile.span("io.parse") as sp:
+        parsed = edge_list_parser.parse(path, weighted)
+        native = parsed is not None
+        if not native:
+            parsed = _parse_pandas(path, weighted)
+        if sp:
+            size = os.path.getsize(path)
+            sp.count(bytes=size, edges=len(parsed[0]), native=int(native),
+                     threads=edge_list_parser.threads(size) if native else 1)
         return parsed
-    return _parse_pandas(path, weighted)
 
 
 class EdgeListInput:

@@ -44,6 +44,8 @@ def _load():
             _lib.gt_parse_edge_list.restype = ctypes.c_int
             _lib.gt_free_edge_list.argtypes = [ctypes.POINTER(_GtEdgeList)]
             _lib.gt_free_edge_list.restype = None
+            _lib.gt_edge_list_threads.argtypes = [ctypes.c_int64]
+            _lib.gt_edge_list_threads.restype = ctypes.c_int
     return _lib
 
 
@@ -51,6 +53,13 @@ def load_error() -> Optional[str]:
     """Why the native parser could not be built or loaded; None if it
     loaded or has not been tried."""
     return _error
+
+
+def threads(size: int) -> Optional[int]:
+    """The threads :func:`parse` splits a file of ``size`` bytes over;
+    None if the library is unavailable."""
+    lib = _load()
+    return None if lib is None else int(lib.gt_edge_list_threads(size))
 
 
 def parse(

@@ -5,11 +5,13 @@
 // byte-level ASCII digit parsing, CRLF tolerated.  This is the native
 // fast path behind graph_tpu_torch.io.edgelist (the pandas reader is the
 // portable fallback).  graph_tpu_torch's own copy of graph_tpu's parser;
-// the code is the same.
+// the parse is the same, and gt_edge_list_threads tells the caller how
+// many threads it splits a file over.
 //
 // C ABI:
 //   int  gt_parse_edge_list(path, weighted, &result)   -> 0 on success
 //   void gt_free_edge_list(&result)
+//   int  gt_edge_list_threads(size)   -> parser threads for a file of size bytes
 
 #include <cstdint>
 #include <cstdio>
@@ -84,6 +86,13 @@ void parse_chunk(Chunk *chunk, bool weighted) {
 
 extern "C" {
 
+int gt_edge_list_threads(int64_t size) {
+  // tiny files: single chunk
+  if (size < (1 << 20)) return 1;
+  const unsigned n = std::thread::hardware_concurrency();
+  return n == 0 ? 4 : static_cast<int>(n);
+}
+
 int gt_parse_edge_list(const char *path, int weighted, GtEdgeList *out) {
   out->src = nullptr;
   out->dst = nullptr;
@@ -107,10 +116,8 @@ int gt_parse_edge_list(const char *path, int weighted, GtEdgeList *out) {
   if (map == MAP_FAILED) return 1;
   const char *data = static_cast<const char *>(map);
 
-  unsigned n_threads = std::thread::hardware_concurrency();
-  if (n_threads == 0) n_threads = 4;
-  // tiny files: single chunk
-  if (size < (1u << 20)) n_threads = 1;
+  const unsigned n_threads =
+      static_cast<unsigned>(gt_edge_list_threads(static_cast<int64_t>(size)));
 
   // chunk boundaries aligned to the next '\n' (edgelist.rs:205-250)
   std::vector<Chunk> chunks(n_threads);
